@@ -1,0 +1,134 @@
+"""Build and load the package's CUDA kernels.
+
+The sources under ``csrc/`` are compiled by ``nvcc`` at first use into one
+shared library with a plain C ABI, ``_build/libdmm_kernels_<hash>.so``
+(keyed by a hash of the sources and flags, so an edited source rebuilds),
+and loaded with ctypes. No PyTorch headers are involved, which keeps the
+build to seconds. A failed build raises; nothing falls back.
+
+Flags: ``-gencode arch=compute_90a,code=sm_90a -O3 -std=c++17`` and
+``-fmad=false``. The last one keeps nvcc from contracting a*b+c into one
+FMA, so a kernel rounds operation for operation like its plain PyTorch
+version; no ``--use_fast_math``, so sincosf/expf/logf stay full precision.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from functools import lru_cache
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-std=c++17", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+
+class DmmArgs(ctypes.Structure):
+    """ctypes mirror of ``struct DmmArgs`` in csrc/diffdrive_rollout.cuh."""
+
+    _fields_ = [
+        (name, ctypes.c_void_p)
+        for name in (
+            "seed", "u", "a", "chol", "x0", "window", "stage_w", "term_w",
+            "u_min", "u_max", "obstacles", "control_w", "filter_t", "eps",
+            "S", "w", "w_eps", "stats", "u_new", "u_shift", "finite",
+        )
+    ] + [
+        (name, ctypes.c_int)
+        for name in (
+            "K", "T", "W", "n_obs", "k_blk", "eps_mode", "iso_xy",
+            "last_only", "obs_mode", "drift", "fuse_epilogue",
+        )
+    ] + [
+        (name, ctypes.c_float)
+        for name in (
+            "dt", "n_exploit", "k_offset", "inv_temp", "obs_radius",
+            "soft_dist", "soft_w",
+        )
+    ]
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+    return found
+
+
+def _sources() -> list[Path]:
+    return sorted(list(CSRC.glob("*.cu")) + list(CSRC.glob("*.cuh")))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources lives (built or not)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libdmm_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the sources into the library unless it is already there."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(s) for s in CSRC.glob("*.cu"))]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, out)  # atomic: a concurrent builder sees all or nothing
+    return out
+
+
+@lru_cache(maxsize=None)
+def load_kernels() -> ctypes.CDLL:
+    """Build if needed, load, and declare the C entry points."""
+    lib = ctypes.CDLL(str(build()))
+    lib.dmm_args_size.argtypes = []
+    lib.dmm_args_size.restype = ctypes.c_int
+    for fn in (lib.dmm_rollout_costs, lib.dmm_mppi_tick):
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    if lib.dmm_args_size() != ctypes.sizeof(DmmArgs):
+        raise RuntimeError(
+            f"DmmArgs layout mismatch: C {lib.dmm_args_size()} bytes, "
+            f"ctypes {ctypes.sizeof(DmmArgs)} bytes"
+        )
+    return lib
+
+
+def launch(entry: str, args: DmmArgs, device: torch.device) -> None:
+    """Call C entry ``entry`` on the current stream of ``device``; raise on a
+    non-zero ``cudaGetLastError``."""
+    fn = getattr(load_kernels(), entry)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(ctypes.addressof(args), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{entry}: CUDA error {err} at launch")
+
+
+__all__ = ["DmmArgs", "build", "launch", "library_path", "load_kernels"]
