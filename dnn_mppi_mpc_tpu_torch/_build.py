@@ -3,13 +3,16 @@
 The sources under ``csrc/`` are compiled by ``nvcc`` at first use into one
 shared library with a plain C ABI, ``_build/libdmm_kernels_<hash>.so``
 (keyed by a hash of the sources and flags, so an edited source rebuilds),
-and loaded with ctypes. No PyTorch headers are involved, which keeps the
-build to seconds. A failed build raises; nothing falls back.
+and loaded with ctypes. Each ``.cu`` file is compiled by its own ``nvcc``,
+all started together, and the objects are linked in one more call. No
+PyTorch headers are involved, which keeps the build to seconds. A failed
+build raises; nothing falls back.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a -O3 -std=c++17`` and
 ``-fmad=false``. The last one keeps nvcc from contracting a*b+c into one
 FMA, so a kernel rounds operation for operation like its plain PyTorch
-version; no ``--use_fast_math``, so sincosf/expf/logf stay full precision.
+version; no ``--use_fast_math``, so sincosf/expf/logf/tanf stay full
+precision.
 """
 
 from __future__ import annotations
@@ -31,8 +34,13 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
+LINK_FLAGS = ("-shared",)
+
+
+# kOutlinePoints in csrc/bicycle_rollout.cuh: the vehicle outline's length
+OUTLINE_POINTS = 9
 
 
 class DmmArgs(ctypes.Structure):
@@ -60,6 +68,29 @@ class DmmArgs(ctypes.Structure):
     ]
 
 
+class DmmBicycleArgs(ctypes.Structure):
+    """ctypes mirror of ``struct DmmBicycleArgs`` in csrc/bicycle_rollout.cuh."""
+
+    _fields_ = [
+        (name, ctypes.c_void_p)
+        for name in (
+            "seed", "u", "a", "chol", "x0", "window", "stage_w", "term_w",
+            "u_min", "u_max", "obstacles", "eps", "S", "w", "w_eps", "stats",
+        )
+    ] + [
+        (name, ctypes.c_int) for name in ("K", "T", "W", "n_obs", "eps_mode", "iso_xy")
+    ] + [
+        (name, ctypes.c_float)
+        for name in (
+            "dt", "n_exploit", "k_offset", "inv_temp", "inv_wheel_base",
+            "half_l", "half_w", "penalty",
+        )
+    ] + [
+        ("outline_x", ctypes.c_float * OUTLINE_POINTS),
+        ("outline_y", ctypes.c_float * OUTLINE_POINTS),
+    ]
+
+
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
     cand = Path(home) / "bin" / "nvcc"
@@ -77,11 +108,24 @@ def _sources() -> list[Path]:
 
 def library_path() -> Path:
     """Where the library for the current sources lives (built or not)."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libdmm_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands side by side; raise with the output of the first
+    that fails, after all have ended."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c in cmds
+    ]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, text in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{text}")
 
 
 def build() -> Path:
@@ -90,16 +134,14 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(s) for s in CSRC.glob("*.cu"))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent builder sees all or nothing
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        srcs = sorted(CSRC.glob("*.cu"))
+        objs = [str(Path(work) / f"{src.stem}.o") for src in srcs]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj] for src, obj in zip(srcs, objs)])
+        lib = str(Path(work) / "lib.so")
+        _run_all([[nvcc, *LINK_FLAGS, "-o", lib, *objs]])
+        os.replace(lib, out)  # atomic: a concurrent build sees all or nothing
     return out
 
 
@@ -109,18 +151,23 @@ def load_kernels() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     lib.dmm_args_size.argtypes = []
     lib.dmm_args_size.restype = ctypes.c_int
-    for fn in (lib.dmm_rollout_costs, lib.dmm_mppi_tick):
+    lib.dmm_bicycle_args_size.argtypes = []
+    lib.dmm_bicycle_args_size.restype = ctypes.c_int
+    for fn in (lib.dmm_rollout_costs, lib.dmm_mppi_tick, lib.dmm_bicycle_rollout_costs,
+               lib.dmm_bicycle_tick):
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    if lib.dmm_args_size() != ctypes.sizeof(DmmArgs):
-        raise RuntimeError(
-            f"DmmArgs layout mismatch: C {lib.dmm_args_size()} bytes, "
-            f"ctypes {ctypes.sizeof(DmmArgs)} bytes"
-        )
+    for struct, size_fn in ((DmmArgs, lib.dmm_args_size),
+                            (DmmBicycleArgs, lib.dmm_bicycle_args_size)):
+        if size_fn() != ctypes.sizeof(struct):
+            raise RuntimeError(
+                f"{struct.__name__} layout mismatch: C {size_fn()} bytes, "
+                f"ctypes {ctypes.sizeof(struct)} bytes"
+            )
     return lib
 
 
-def launch(entry: str, args: DmmArgs, device: torch.device) -> None:
+def launch(entry: str, args: ctypes.Structure, device: torch.device) -> None:
     """Call C entry ``entry`` on the current stream of ``device``; raise on a
     non-zero ``cudaGetLastError``."""
     fn = getattr(load_kernels(), entry)
@@ -131,4 +178,12 @@ def launch(entry: str, args: DmmArgs, device: torch.device) -> None:
         raise RuntimeError(f"{entry}: CUDA error {err} at launch")
 
 
-__all__ = ["DmmArgs", "build", "launch", "library_path", "load_kernels"]
+__all__ = [
+    "OUTLINE_POINTS",
+    "DmmArgs",
+    "DmmBicycleArgs",
+    "build",
+    "launch",
+    "library_path",
+    "load_kernels",
+]

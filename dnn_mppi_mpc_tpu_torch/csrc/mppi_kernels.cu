@@ -17,9 +17,10 @@
 // by the latency of each thread's dependent T·W compare-and-select chain.
 // Design: 64-thread blocks so that every one of the 132 SMs gets a block at
 // the flagship K, per-tick constants staged in shared memory, no atomics.
-// The three reductions are small: a single-block pass for ρ = min S and
-// η = Σ exp(−λ(S−ρ)) (which also writes w), one block per t for Σₖ wₖ·εₖ,
-// and a one-block epilogue; each is a fixed-order tree, so results repeat
+// The reductions are small: a single-block pass for ρ = min S and
+// η = Σ exp(−λ(S−ρ)) (which also writes w), one block per t for Σₖ wₖ·εₖ
+// (both in mppi_reductions.cuh, shared with the bicycle tick), and a
+// one-block epilogue; each is a fixed-order tree, so results repeat
 // bit for bit from run to run. Not yet done (later work): splitting the W
 // search across lanes, regenerating ε in the single-block tick instead of
 // storing it, fusing the four launches.
@@ -34,17 +35,14 @@
 #include <cstdint>
 
 #include "diffdrive_rollout.cuh"
+#include "mppi_reductions.cuh"
 
 namespace {
 
-constexpr int kRolloutThreads = 64;
-constexpr int kReduceThreads = 1024;  // softmax statistics, one block
-constexpr int kWepsThreads = 256;     // Σ w·ε, one block per t
-constexpr int kMaxSmemBytes = 48 * 1024;
-
-__device__ __forceinline__ float min_nan(float a, float b) {
-  // NaN-propagating min (jnp.min / torch.min semantics)
-  return (a < b || a != a) ? a : b;
+// The fields of DmmArgs that the reductions read and write.
+DmmReduceArgs reduce_args(const DmmArgs& p) {
+  return DmmReduceArgs{p.S, p.w, p.stats, p.eps, p.w_eps, p.chol, p.seed,
+                       p.K, p.k_blk, p.inv_temp};
 }
 
 // Stage u, a, the window and the obstacles in shared memory.
@@ -70,88 +68,6 @@ __global__ void rollout_kernel(DmmArgs p) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= p.K) return;
   p.S[k] = dmm_rollout_sample<ISO, LAST, GEN>(p, k, su, sa, swin, sobs);
-}
-
-// ρ = min S, η = Σ exp(−λ(S−ρ)), w = exp(−λ(S−ρ))/η — one block.
-__global__ void softmax_kernel(DmmArgs p) {
-  __shared__ float red[kReduceThreads];
-  const int tid = threadIdx.x;
-  float m = INFINITY;
-  for (int k = tid; k < p.K; k += blockDim.x) m = min_nan(m, p.S[k]);
-  red[tid] = m;
-  __syncthreads();
-  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
-    if (tid < s) red[tid] = min_nan(red[tid], red[tid + s]);
-    __syncthreads();
-  }
-  const float rho = red[0];
-  __syncthreads();
-  const float neg_lam = -p.inv_temp;
-  float acc = 0.0f;
-  for (int k = tid; k < p.K; k += blockDim.x) acc += expf(neg_lam * (p.S[k] - rho));
-  red[tid] = acc;
-  __syncthreads();
-  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
-    if (tid < s) red[tid] = red[tid] + red[tid + s];
-    __syncthreads();
-  }
-  const float eta = red[0];
-  for (int k = tid; k < p.K; k += blockDim.x) p.w[k] = expf(neg_lam * (p.S[k] - rho)) / eta;
-  if (tid == 0) {
-    p.stats[0] = rho;
-    p.stats[1] = eta;
-  }
-}
-
-// w_eps[t] = Σₖ wₖ·ε[t, k] over the unclamped ε; block t. REGEN draws ε
-// again from the hash stream instead of reading the stored buffer.
-template <bool REGEN>
-__global__ void weighted_eps_kernel(DmmArgs p) {
-  __shared__ float red0[kWepsThreads];
-  __shared__ float red1[kWepsThreads];
-  const int t = blockIdx.x, tid = threadIdx.x;
-  float l00 = 0.0f, l10 = 0.0f, l11 = 0.0f;
-  uint32_t seed = 0;
-  if (REGEN) {
-    l00 = p.chol[0];
-    l10 = p.chol[2];
-    l11 = p.chol[3];
-    seed = static_cast<uint32_t>(p.seed[0]);
-  }
-  float a0 = 0.0f, a1 = 0.0f;
-  for (int k = tid; k < p.K; k += blockDim.x) {
-    float e0, e1;
-    if (REGEN) {
-      const uint32_t blk = static_cast<uint32_t>(k / p.k_blk);
-      const uint32_t local = static_cast<uint32_t>(k - static_cast<int>(blk) * p.k_blk);
-      float z0, z1;
-      dmm_hash_normal_pair(dmm_stream_base(seed, blk),
-                           static_cast<uint32_t>(t) * p.k_blk + local, &z0, &z1);
-      e0 = l00 * z0;
-      e1 = l10 * z0 + l11 * z1;
-    } else {
-      const float2 e = reinterpret_cast<const float2*>(p.eps)[static_cast<size_t>(t) * p.K + k];
-      e0 = e.x;
-      e1 = e.y;
-    }
-    const float wk = p.w[k];
-    a0 = a0 + wk * e0;
-    a1 = a1 + wk * e1;
-  }
-  red0[tid] = a0;
-  red1[tid] = a1;
-  __syncthreads();
-  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
-    if (tid < s) {
-      red0[tid] = red0[tid] + red0[tid + s];
-      red1[tid] = red1[tid] + red1[tid + s];
-    }
-    __syncthreads();
-  }
-  if (tid == 0) {
-    p.w_eps[2 * t] = red0[0];
-    p.w_eps[2 * t + 1] = red1[0];
-  }
 }
 
 // u_new = u + F·w_eps (fmaf, full f32), non-finite hold, horizon shift.
@@ -238,14 +154,8 @@ int dmm_mppi_tick(const DmmArgs* args, void* stream) {
   if (p.T > 1024) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = launch_rollout(p, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  softmax_kernel<<<1, kReduceThreads, 0, s>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (p.eps_mode == 2)
-    weighted_eps_kernel<true><<<p.T, kWepsThreads, 0, s>>>(p);
-  else
-    weighted_eps_kernel<false><<<p.T, kWepsThreads, 0, s>>>(p);
-  err = cudaGetLastError();
+  err = p.eps_mode == 2 ? launch_reductions<true>(reduce_args(p), p.T, s)
+                        : launch_reductions<false>(reduce_args(p), p.T, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (p.fuse_epilogue) {
     const int threads = ((p.T + 31) / 32) * 32;

@@ -115,6 +115,8 @@ def rollout_body_plain(
 ) -> torch.Tensor:
     """Per-sample costs S (K,) — the plain twin of ``dmm_rollout_sample``
     in csrc/diffdrive_rollout.cuh (same operations in the same order)."""
+    if obs_mode not in ("circle", "soft"):
+        raise ValueError(f"obs_mode must be 'circle' or 'soft', got {obs_mode!r}")
     K, T, _ = eps.shape
     dt, obs_radius, soft_dist, soft_w = f32(dt), f32(obs_radius), f32(soft_dist), f32(soft_w)
     k_idx = torch.arange(K, dtype=torch.float32, device=eps.device) + f32(k_offset)

@@ -3,6 +3,8 @@ from .mppi import (
     MPPIAux,
     MPPISolver,
     MPPIState,
+    make_cuda_bicycle_rollout,
+    make_cuda_bicycle_tick,
     make_cuda_diffdrive_rollout,
     make_cuda_diffdrive_tick,
     make_cuda_diffdrive_tick_blocked,
@@ -16,6 +18,8 @@ __all__ = [
     "MPPIAux",
     "MPPISolver",
     "MPPIState",
+    "make_cuda_bicycle_rollout",
+    "make_cuda_bicycle_tick",
     "make_cuda_diffdrive_rollout",
     "make_cuda_diffdrive_tick",
     "make_cuda_diffdrive_tick_blocked",

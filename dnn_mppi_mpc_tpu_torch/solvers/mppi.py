@@ -10,19 +10,24 @@ package's routing rule:
 
 * the scan path (a Python loop over T on (K, ...) tensors) — the port's own
   oracle, fed injected ``noise`` or a ``torch.Generator``;
-* ``rollout_fn``: the split CUDA rollout kernel in place of the loop
-  (:func:`make_cuda_diffdrive_rollout`);
+* ``rollout_fn``: a split CUDA rollout kernel in place of the loop
+  (:func:`make_cuda_diffdrive_rollout`, or :func:`make_cuda_bicycle_rollout`
+  for the race car);
 * ``tick_fn``: the whole sample-space computation in one fused kernel
-  pipeline (:func:`make_cuda_diffdrive_tick`, or the K-blocked
-  :func:`make_cuda_diffdrive_tick_blocked` at pod-scale K).
+  pipeline (:func:`make_cuda_diffdrive_tick`, the K-blocked
+  :func:`make_cuda_diffdrive_tick_blocked` at pod-scale K, or the race car's
+  :func:`make_cuda_bicycle_tick`).
+
+The tracking costs cover the diff-drive robot (circle or soft obstacles) and
+the race car (wrapped yaw, the vehicle polygon against circles).
 
 No step waits on the host: the waypoint window start, the tick seed and the
 carried key stay on the device.
 
 Not ported yet (each raises ``ValueError``, never ignored):
-``waypoint_carry="rollout"``, the vehicle-polygon cost, the generic tick
-(``tile_dynamics``), fleets and sharding, and the TPU-only tuning knobs
-(``lean``, ``fold_anchor``, ``sincos`` modes, hardware Gaussians).
+``waypoint_carry="rollout"``, the generic tick (``tile_dynamics``), fleets
+and sharding, and the TPU-only tuning knobs (``lean``, ``fold_anchor``,
+``sincos`` modes, hardware Gaussians).
 """
 
 from __future__ import annotations
@@ -34,7 +39,12 @@ import numpy as np
 import torch
 
 from ..config import CostAccumulation, MPPIConfig, MPPIParams
-from ..ops.costs import COLLISION_PENALTY, circle_robot_collision, soft_obstacle_cost
+from ..ops.costs import (
+    COLLISION_PENALTY,
+    circle_robot_collision,
+    soft_obstacle_cost,
+    vehicle_polygon_collision,
+)
 from ..ops.cuda.common import f32
 from ..ops.filters import apply_filter, filter_matrix, matmul_f32
 from ..ops.sampling import sample_noise, sigma_inverse, small_cholesky
@@ -111,16 +121,20 @@ def make_tracking_costs(
     wrap_yaw: bool = False,
     collision: str = "none",
     robot_radius: float = 0.5,
+    vehicle_length: float = 4.0,
+    vehicle_width: float = 3.0,
     safety_margin_rate: float = 1.5,
     soft_safety_distance: float = 2.0,
     soft_weight: float = 100.0,
 ) -> Tuple[StageCost, TerminalCost]:
     """Waypoint-tracking stage/terminal costs, with ``collision`` 'none',
     'circle' (+1e7 when the robot circle, radius × margin, overlaps an
-    obstacle) or 'soft' (exponential penalty)."""
-    if collision not in ("none", "circle", "soft"):
+    obstacle), 'polygon' (+1e7 when a point of the vehicle outline, length ×
+    width × margin, lies in an obstacle) or 'soft' (exponential penalty).
+    ``wrap_yaw`` wraps the yaw to [0, 2π) before differencing (race car)."""
+    if collision not in ("none", "circle", "polygon", "soft"):
         raise ValueError(
-            f"collision {collision!r} is not ported (have 'none', 'circle', 'soft')"
+            f"unknown collision mode {collision!r} (have 'none', 'circle', 'polygon', 'soft')"
         )
 
     def tracking(x, weight, ctx):
@@ -148,6 +162,10 @@ def make_tracking_costs(
         if collision == "circle":
             return circle_robot_collision(
                 x[..., :2], obs, robot_radius * safety_margin_rate
+            ) * COLLISION_PENALTY
+        if collision == "polygon":
+            return vehicle_polygon_collision(
+                x, obs, vehicle_length, vehicle_width, safety_margin_rate
             ) * COLLISION_PENALTY
         return soft_obstacle_cost(x[..., :2], obs, soft_safety_distance, soft_weight)
 
@@ -312,10 +330,11 @@ def _mppi_tail_fused(cfg, dynamics_step, params, x0, key, wp_idx, S, w, u_new, u
     return u_new[0], MPPIState(u_prev=u_shift, waypoint_idx=wp_idx, key=key), aux
 
 
-def _tick_window(cfg, params, ctx):
-    """(W, 3) contiguous window rows of this tick and W."""
+def _tick_window(cfg, params, ctx, columns: int):
+    """The first ``columns`` columns of this tick's window rows, contiguous,
+    and W (the diff-drive kernels read (x, y, yaw), the bicycle's also v)."""
     _, window = waypoint_window(params.ref_path, ctx.waypoint_start, cfg.waypoint_search_len)
-    return window[:, :3].contiguous(), window.shape[0]
+    return window[:, :columns].contiguous(), window.shape[0]
 
 
 def _energy_rows(cfg, params, u):
@@ -346,6 +365,23 @@ def _reject_repeats(cfg, what):
         )
 
 
+def _check_kernel_collision(collision: str) -> None:
+    """The diff-drive ticks compile in the circle and soft obstacle costs."""
+    if collision not in ("circle", "soft"):
+        raise ValueError(
+            f"the diff-drive ticks take collision 'circle' or 'soft', got {collision!r} "
+            "(the vehicle polygon is the race car's: make_cuda_bicycle_tick)"
+        )
+
+
+def _reject_last(cfg, what):
+    if cfg.accumulation == CostAccumulation.LAST:
+        raise ValueError(
+            f"the {what} implements SUM accumulation only — accumulation=LAST "
+            "needs the scan path"
+        )
+
+
 def _check_iso_weights(params: MPPIParams) -> None:
     """iso_xy needs symmetric x/y tracking weights (one host read)."""
     for wgt in (params.stage_weight, params.terminal_weight):
@@ -372,7 +408,7 @@ def make_cuda_diffdrive_rollout(
                 "the split rollout kernel does not implement moving obstacles "
                 "(obstacle_velocities) — use the scan path or the fused tick"
             )
-        window, W = _tick_window(cfg, params, ctx)
+        window, W = _tick_window(cfg, params, ctx, 3)
         return diffdrive_rollout_costs(
             eps.contiguous(), u, _energy_rows(cfg, params, u), x0, window,
             params.stage_weight, params.terminal_weight, params.u_min, params.u_max,
@@ -411,6 +447,7 @@ def make_cuda_diffdrive_tick(
     _check_tick_carry(cfg)
     _reject_unported(sincos=sincos, gaussian=gaussian, fold_anchor=fold_anchor, lean=lean)
     _reject_repeats(cfg, "fused tick")
+    _check_kernel_collision(collision)
     filter_np = np.ascontiguousarray(
         filter_matrix(cfg.filter.value, cfg.horizon, cfg.filter_window, cfg.savgol_polyorder).T,
         np.float32,
@@ -418,7 +455,7 @@ def make_cuda_diffdrive_tick(
     filter_t = {}  # device → Fᵀ tensor, made once per device
 
     def tick(params, ctx, u, x0, seed, noise):
-        window, W = _tick_window(cfg, params, ctx)
+        window, W = _tick_window(cfg, params, ctx, 3)
         ft = None
         if fuse_epilogue:
             if u.device not in filter_t:
@@ -464,6 +501,7 @@ def make_cuda_diffdrive_tick_blocked(
     _check_tick_carry(cfg)
     _reject_unported(sincos=sincos)
     _reject_repeats(cfg, "blocked fused tick")
+    _check_kernel_collision(collision)
     if cfg.num_samples % k_block != 0:
         raise ValueError(
             f"num_samples={cfg.num_samples} must be a multiple of k_block={k_block}"
@@ -475,7 +513,7 @@ def make_cuda_diffdrive_tick_blocked(
                 "the blocked fused tick is PRNG-mode only (per-block hash ε) — "
                 "use the single-block tick or scan path for injected noise"
             )
-        window, W = _tick_window(cfg, params, ctx)
+        window, W = _tick_window(cfg, params, ctx, 3)
         S, rho, eta, w_eps = diffdrive_mppi_tick_blocked(
             seed, u, _energy_rows(cfg, params, u), small_cholesky(params.sigma),
             x0, window, params.stage_weight, params.terminal_weight,
@@ -491,6 +529,86 @@ def make_cuda_diffdrive_tick_blocked(
         )
         w = torch.exp(-f32(cfg.inv_temperature) * (S - rho)) / eta
         return S, w, w_eps
+
+    tick.iso_xy = iso_xy
+    return tick
+
+
+def _bicycle_kernel_args(cfg, params, ctx, u, x0, vehicle, what):
+    """The arguments both bicycle kernels share, for this tick."""
+    if params.obstacle_velocities is not None:
+        raise ValueError(
+            f"the {what} does not implement moving obstacles "
+            "(obstacle_velocities) — use the scan path"
+        )
+    window, W = _tick_window(cfg, params, ctx, 4)
+    return dict(
+        u=u, a=_energy_rows(cfg, params, u), x0=x0, window=window,
+        stage_w=params.stage_weight, term_w=params.terminal_weight,
+        u_min=params.u_min, u_max=params.u_max, dt=cfg.dt,
+        n_exploit=(1.0 - cfg.exploration) * cfg.num_samples,
+        obstacles=params.obstacles, T=cfg.horizon, W=W, **vehicle,
+    )
+
+
+def make_cuda_bicycle_rollout(
+    cfg: MPPIConfig,
+    wheel_base: float = 2.5,
+    vehicle_length: float = 4.0,
+    vehicle_width: float = 3.0,
+    margin_rate: float = 1.5,
+):
+    """Bind the split bicycle rollout (ops/cuda/rollout_bicycle.py) as
+    ``rollout_fn``: Euler kinematic bicycle, wrap-yaw 4-term tracking,
+    vehicle polygon against circles, SUM only. LAST accumulation, M-repeat
+    rollouts and moving obstacles raise ``ValueError``."""
+    from ..ops.cuda.rollout_bicycle import bicycle_rollout_costs
+
+    _check_tick_carry(cfg)
+    _reject_last(cfg, "split bicycle rollout")
+    _reject_repeats(cfg, "split bicycle rollout")
+    vehicle = dict(wheel_base=wheel_base, vehicle_length=vehicle_length,
+                   vehicle_width=vehicle_width, margin_rate=margin_rate)
+
+    def rollout(params, ctx, u, eps, x0):
+        args = _bicycle_kernel_args(cfg, params, ctx, u, x0, vehicle, "split bicycle rollout")
+        return bicycle_rollout_costs(eps.contiguous(), **args)
+
+    return rollout
+
+
+def make_cuda_bicycle_tick(
+    cfg: MPPIConfig,
+    wheel_base: float = 2.5,
+    vehicle_length: float = 4.0,
+    vehicle_width: float = 3.0,
+    margin_rate: float = 1.5,
+    gaussian: str = "hash",
+    iso_xy: bool = False,
+    sincos: str = "native",
+):
+    """Bind the fused bicycle tick (ops/cuda/bicycle_tick.py) as ``tick_fn``
+    — ε from the hash stream seeded by the carried key, or injected; the
+    semantics of :func:`make_cuda_bicycle_rollout`. ``iso_xy`` specializes
+    for symmetric x/y tracking weights (the solver checks them once per
+    params object)."""
+    from ..ops.cuda.bicycle_tick import bicycle_mppi_tick
+
+    _check_tick_carry(cfg)
+    _reject_unported(sincos=sincos, gaussian=gaussian)
+    _reject_last(cfg, "fused bicycle tick")
+    _reject_repeats(cfg, "fused bicycle tick")
+    vehicle = dict(wheel_base=wheel_base, vehicle_length=vehicle_length,
+                   vehicle_width=vehicle_width, margin_rate=margin_rate)
+
+    def tick(params, ctx, u, x0, seed, noise):
+        args = _bicycle_kernel_args(cfg, params, ctx, u, x0, vehicle, "fused bicycle tick")
+        return bicycle_mppi_tick(
+            seed, chol_sigma=small_cholesky(params.sigma),
+            inv_temperature=cfg.inv_temperature,
+            eps=None if noise is None else noise.contiguous(),
+            K=cfg.num_samples, iso_xy=iso_xy, **args,
+        )
 
     tick.iso_xy = iso_xy
     return tick
@@ -619,6 +737,8 @@ __all__ = [
     "MPPISolver",
     "MPPIState",
     "advance_key",
+    "make_cuda_bicycle_rollout",
+    "make_cuda_bicycle_tick",
     "make_cuda_diffdrive_rollout",
     "make_cuda_diffdrive_tick",
     "make_cuda_diffdrive_tick_blocked",

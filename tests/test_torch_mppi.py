@@ -239,9 +239,16 @@ def test_unported_options_raise_at_construction(case):
 
 
 def test_polygon_collision_raises():
-    cfg, *_ = _flag()
-    with pytest.raises(ValueError, match="polygon"):
-        tmppi.make_tracking_costs(cfg, collision="polygon")
+    """The vehicle polygon is the race car's cost: the diff-drive ticks, which
+    compile in the circle and soft costs, refuse it (the JAX kernel asserts
+    the same); an unknown mode is refused by the scan costs too."""
+    cfg, params, step, stage, terminal = _flag()
+    for K in (1024, 102400):  # the fused tick and the K-blocked tick
+        with pytest.raises(ValueError, match="polygon"):
+            tmppi.MPPISolver(dataclasses.replace(cfg, num_samples=K), step, stage, terminal,
+                             fused_tick=True, collision="polygon")
+    with pytest.raises(ValueError, match="collision"):
+        tmppi.make_tracking_costs(cfg, collision="ellipse")
 
 
 def test_runtime_guards_raise():
