@@ -57,7 +57,8 @@ class DmmArgs(ctypes.Structure):
         (name, ctypes.c_int)
         for name in (
             "K", "T", "W", "n_obs", "k_blk", "eps_mode", "iso_xy",
-            "last_only", "obs_mode", "drift", "fuse_epilogue",
+            "last_only", "obs_mode", "drift", "fuse_epilogue", "block_offset",
+            "s_only",
         )
     ] + [
         (name, ctypes.c_float)
@@ -66,6 +67,13 @@ class DmmArgs(ctypes.Structure):
             "soft_dist", "soft_w",
         )
     ]
+
+
+class DmmFleetArgs(ctypes.Structure):
+    """ctypes mirror of ``struct DmmFleetArgs`` in csrc/diffdrive_rollout.cuh:
+    member 0's argument block and the member count B."""
+
+    _fields_ = [("m", DmmArgs), ("B", ctypes.c_int)]
 
 
 class DmmBicycleArgs(ctypes.Structure):
@@ -153,11 +161,14 @@ def load_kernels() -> ctypes.CDLL:
     lib.dmm_args_size.restype = ctypes.c_int
     lib.dmm_bicycle_args_size.argtypes = []
     lib.dmm_bicycle_args_size.restype = ctypes.c_int
-    for fn in (lib.dmm_rollout_costs, lib.dmm_mppi_tick, lib.dmm_bicycle_rollout_costs,
-               lib.dmm_bicycle_tick):
+    lib.dmm_fleet_args_size.argtypes = []
+    lib.dmm_fleet_args_size.restype = ctypes.c_int
+    for fn in (lib.dmm_rollout_costs, lib.dmm_mppi_tick, lib.dmm_weighted_noise_reduce,
+               lib.dmm_fleet_mppi_tick, lib.dmm_bicycle_rollout_costs, lib.dmm_bicycle_tick):
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     for struct, size_fn in ((DmmArgs, lib.dmm_args_size),
+                            (DmmFleetArgs, lib.dmm_fleet_args_size),
                             (DmmBicycleArgs, lib.dmm_bicycle_args_size)):
         if size_fn() != ctypes.sizeof(struct):
             raise RuntimeError(
@@ -182,6 +193,7 @@ __all__ = [
     "OUTLINE_POINTS",
     "DmmArgs",
     "DmmBicycleArgs",
+    "DmmFleetArgs",
     "build",
     "launch",
     "library_path",

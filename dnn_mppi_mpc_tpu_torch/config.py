@@ -122,6 +122,18 @@ class MPPIParams:
         )
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device on a machine without
+    one raises here, with the way out, instead of deep in a kernel call."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"this runs on the card by default (device={str(device)!r}) and no CUDA "
+            "device is available: pass device='cpu' to run the plain versions on the CPU"
+        )
+    return device
+
+
 def params_from_numpy(
     sigma,
     stage_weight,
@@ -134,12 +146,15 @@ def params_from_numpy(
     model_params=None,
     control_weight=None,
     *,
-    device="cpu",
+    device="cuda",
 ) -> MPPIParams:
     """Build :class:`MPPIParams` on ``device`` from the JAX package's
-    ``MPPIParams`` leaves given as numpy arrays (in their field order)."""
+    ``MPPIParams`` leaves given as numpy arrays (in their field order). A
+    fleet's per-member leaves keep their leading member axis: ``ref_path``
+    (B, P, d), ``obstacles`` (B, n, 3), ``obstacle_velocities`` (B, n, 2)."""
     if model_params is not None:
         raise ValueError("model_params (learned/custom dynamics) is not ported yet")
+    device = resolve_device(device)
 
     def f32(a):
         if a is None:
@@ -166,4 +181,5 @@ __all__ = [
     "MPPIConfig",
     "MPPIParams",
     "params_from_numpy",
+    "resolve_device",
 ]

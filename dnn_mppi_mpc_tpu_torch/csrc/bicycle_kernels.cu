@@ -96,7 +96,7 @@ int dmm_bicycle_tick(const DmmBicycleArgs* args, void* stream) {
   cudaError_t err = launch_bicycle_rollout(p, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const DmmReduceArgs r{p.S, p.w, p.stats, p.eps, p.w_eps, p.chol, p.seed, p.K, p.K, p.inv_temp};
-  return static_cast<int>(launch_reductions<false>(r, p.T, s));
+  return static_cast<int>(launch_reductions<false>(r, p.T, 1, s));
 }
 
 }  // extern "C"

@@ -1,4 +1,5 @@
-// Diff-drive MPPI rollout: the device function shared by all three kernels.
+// Diff-drive MPPI rollout: the device function shared by the diff-drive kernels
+// (split rollout, fused and K-blocked tick, fleet tick).
 //
 // Semantics of the Pallas rollout body (dnn_mppi_mpc_tpu/ops/pallas/
 // mppi_tick.py:526-688, rollout.py:31-139, mppi_tick_blocked.py:94-214):
@@ -16,6 +17,7 @@
 // PyTorch version; sincosf/expf/sqrtf stay full precision.
 #pragma once
 
+#include <cstddef>
 #include <cstdint>
 
 #include "hash_normal.cuh"
@@ -56,10 +58,35 @@ struct DmmArgs {
   int obs_mode;             // 0 circle, 1 soft
   int drift;                // obstacles move at (vx, vy) during the rollout
   int fuse_epilogue;
+  int block_offset;         // generated ε: sample k draws from block block_offset + k / k_blk
+  int s_only;               // dmm_mppi_tick in eps_mode 2: the rollout (S) only
   float dt, n_exploit, k_offset, inv_temp;
   float obs_radius;         // effective robot radius (circle mode)
   float soft_dist, soft_w;
 };
+
+// A fleet of B controllers in one launch: `m` holds member 0's pointers;
+// member b's are member 0's plus b times the member's size (dmm_member and
+// the reductions). The seed pointer holds B seeds; chol, the weights and the
+// bounds are shared.
+struct DmmFleetArgs {
+  DmmArgs m;
+  int B;
+};
+
+// Member b's view of the fields the rollout reads and writes (b = 0: the
+// argument block itself).
+__device__ __forceinline__ DmmArgs dmm_member(const DmmArgs& p, int b) {
+  DmmArgs q = p;
+  q.seed = p.seed + b;
+  q.u = p.u + static_cast<size_t>(b) * 2 * p.T;
+  q.a = p.a + static_cast<size_t>(b) * 2 * p.T;
+  q.x0 = p.x0 + static_cast<size_t>(b) * 3;
+  q.window = p.window + static_cast<size_t>(b) * 3 * p.W;
+  if (p.obstacles != nullptr) q.obstacles = p.obstacles + static_cast<size_t>(b) * 5 * p.n_obs;
+  q.S = p.S + static_cast<size_t>(b) * p.K;
+  return q;
+}
 
 __device__ __forceinline__ float dmm_clip(float v, float lo, float hi) {
   // jnp.clip / torch.clamp semantics: NaN passes through
@@ -153,7 +180,8 @@ __device__ float dmm_rollout_sample(const DmmArgs& p, int k, const float* su, co
   if (GEN) {
     const uint32_t blk = static_cast<uint32_t>(k / p.k_blk);
     local = static_cast<uint32_t>(k - static_cast<int>(blk) * p.k_blk);
-    base = dmm_stream_base(static_cast<uint32_t>(p.seed[0]), blk);
+    base = dmm_stream_base(static_cast<uint32_t>(p.seed[0]),
+                           blk + static_cast<uint32_t>(p.block_offset));
     l00 = p.chol[0];
     l10 = p.chol[2];
     l11 = p.chol[3];

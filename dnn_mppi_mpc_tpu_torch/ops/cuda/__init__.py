@@ -1,13 +1,21 @@
-"""Hand-written CUDA kernels of the MPPI hot paths — the diff-drive ticks and
-the race-car (kinematic bicycle) ticks — each beside its plain PyTorch
-version (counterpart of ``dnn_mppi_mpc_tpu/ops/pallas``).
+"""Hand-written CUDA kernels of the MPPI hot paths — the diff-drive ticks,
+the two phases of the sample-sharded tick, the fleet tick and the race-car
+(kinematic bicycle) ticks — each beside its plain PyTorch version
+(counterpart of ``dnn_mppi_mpc_tpu/ops/pallas``).
 
 Importing this package builds nothing: the kernels are compiled at their
 first launch (``dnn_mppi_mpc_tpu_torch._build``)."""
 
 from .bicycle_tick import bicycle_mppi_tick, bicycle_mppi_tick_plain
 from .mppi_tick import diffdrive_mppi_tick, diffdrive_mppi_tick_plain
-from .mppi_tick_blocked import diffdrive_mppi_tick_blocked, diffdrive_mppi_tick_blocked_plain
+from .mppi_tick_blocked import (
+    diffdrive_mppi_tick_blocked,
+    diffdrive_mppi_tick_blocked_plain,
+    fleet_mppi_tick,
+    fleet_mppi_tick_plain,
+    weighted_noise_reduce,
+    weighted_noise_reduce_plain,
+)
 from .rollout import diffdrive_rollout_costs, diffdrive_rollout_costs_plain
 from .rollout_bicycle import bicycle_rollout_costs, bicycle_rollout_costs_plain
 
@@ -17,6 +25,8 @@ KERNEL_WRAPPERS = (
     diffdrive_mppi_tick_blocked,
     bicycle_rollout_costs,
     bicycle_mppi_tick,
+    fleet_mppi_tick,
+    weighted_noise_reduce,
 )
 PLAIN_VERSIONS = (
     diffdrive_rollout_costs_plain,
@@ -24,6 +34,8 @@ PLAIN_VERSIONS = (
     diffdrive_mppi_tick_blocked_plain,
     bicycle_rollout_costs_plain,
     bicycle_mppi_tick_plain,
+    fleet_mppi_tick_plain,
+    weighted_noise_reduce_plain,
 )
 
 
@@ -48,5 +60,9 @@ __all__ = [
     "diffdrive_mppi_tick_plain",
     "diffdrive_rollout_costs",
     "diffdrive_rollout_costs_plain",
+    "fleet_mppi_tick",
+    "fleet_mppi_tick_plain",
     "reset_counts",
+    "weighted_noise_reduce",
+    "weighted_noise_reduce_plain",
 ]

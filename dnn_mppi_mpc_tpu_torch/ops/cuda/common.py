@@ -41,11 +41,13 @@ def check(name: str, t: Optional[torch.Tensor], shape: tuple, device: torch.devi
     return t.data_ptr()
 
 
-def check_seed(seed: torch.Tensor, device: torch.device) -> int:
-    """The tick seed: an int64 tensor of one element on ``device``."""
-    if seed.device != device or seed.dtype != torch.int64 or seed.numel() != 1:
+def check_seed(seed: torch.Tensor, device: torch.device, n: int = 1) -> int:
+    """The tick seed (a fleet's ``n`` seeds): a contiguous int64 tensor of
+    ``n`` elements on ``device``."""
+    if (seed.device != device or seed.dtype != torch.int64 or seed.numel() != n
+            or not seed.is_contiguous()):
         raise ValueError(
-            f"seed must be one int64 element on {device}, got "
+            f"seed must be {n} contiguous int64 element(s) on {device}, got "
             f"{seed.dtype} {tuple(seed.shape)} on {seed.device}"
         )
     return seed.data_ptr()

@@ -61,18 +61,26 @@ def hash_normal_pair(seed, block_id, shape, device=None):
     return rad * torch.cos(ang), rad * torch.sin(ang)
 
 
-def hash_noise(seed, chol: torch.Tensor, K: int, T: int, k_blk: int) -> torch.Tensor:
+def hash_noise(seed, chol: torch.Tensor, K: int, T: int, k_blk: int, block_offset: int = 0,
+               *, per_member: bool = False) -> torch.Tensor:
     """ε (K, T, 2) colored by the lower Cholesky factor ``chol``: sample
     k = b·k_blk + r·128 + lane at step t takes position (t, r, lane) of
-    ``hash_normal_pair(seed, b, (T, k_blk/128, 128))`` (the K-blocked
-    tick's stream contract; the single-block tick is k_blk = K)."""
+    ``hash_normal_pair(seed, block_offset + b, (T, k_blk/128, 128))`` (the
+    K-blocked tick's stream contract; the single-block tick is k_blk = K, a
+    shard of the sample-sharded tick starts at its global ``block_offset``).
+
+    ``per_member``: ``seed`` is a (B,) vector of fleet seeds and the result
+    (B, K, T, 2), member b drawing from ``seed[b]`` (the fleet tick)."""
     if K % k_blk or k_blk % 128:
         raise ValueError(f"need K % k_blk == 0 and k_blk % 128 == 0 (K={K}, k_blk={k_blk})")
-    blocks = torch.arange(K // k_blk, dtype=torch.int64, device=chol.device)
+    seed = torch.as_tensor(seed, dtype=torch.int64, device=chol.device)
+    seed = seed.reshape(-1, 1) if per_member else seed.reshape(())
+    blocks = torch.arange(K // k_blk, dtype=torch.int64, device=chol.device) + block_offset
     z0, z1 = hash_normal_pair(seed, blocks, (T, k_blk // 128, 128), device=chol.device)
-    # (NB, T, R, 128) → (K, T)
-    z0 = z0.reshape(-1, T, k_blk).transpose(1, 2).reshape(K, T)
-    z1 = z1.reshape(-1, T, k_blk).transpose(1, 2).reshape(K, T)
+    # (..., NB, T, R, 128) → (..., K, T)
+    lead = z0.shape[:-4]
+    z0 = z0.reshape(lead + (-1, T, k_blk)).transpose(-1, -2).reshape(lead + (K, T))
+    z1 = z1.reshape(lead + (-1, T, k_blk)).transpose(-1, -2).reshape(lead + (K, T))
     e0 = chol[0, 0] * z0
     e1 = chol[1, 0] * z0 + chol[1, 1] * z1
     return torch.stack([e0, e1], dim=-1)

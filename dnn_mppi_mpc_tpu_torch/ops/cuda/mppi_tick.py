@@ -42,20 +42,21 @@ def effective_robot_radius(robot_radius, safety_margin_rate):
 
 
 def pack_obstacles(obstacles, obstacle_velocities):
-    """(n, 2|3) circles (+ optional (n, 2) velocities) → ((n, 5) rows
-    (x, y, r, vx, vy), n); ``(None, 0)`` without obstacles."""
+    """(..., n, 2|3) circles (+ optional (..., n, 2) velocities; a fleet has
+    a leading member axis) → ((..., n, 5) rows (x, y, r, vx, vy), n);
+    ``(None, 0)`` without obstacles."""
     if obstacles is None:
         return None, 0
     ob = obstacles.to(torch.float32)
-    n = ob.shape[0]
-    if ob.shape[1] == 2:
-        ob = torch.cat([ob, torch.zeros((n, 1), dtype=torch.float32, device=ob.device)], 1)
+    if ob.shape[-1] == 2:
+        ob = torch.cat([ob, torch.zeros(ob.shape[:-1] + (1,), dtype=torch.float32,
+                                        device=ob.device)], -1)
     vel = (
-        obstacle_velocities[:, :2].to(torch.float32)
+        obstacle_velocities[..., :2].to(torch.float32)
         if obstacle_velocities is not None
-        else torch.zeros((n, 2), dtype=torch.float32, device=ob.device)
+        else torch.zeros(ob.shape[:-1] + (2,), dtype=torch.float32, device=ob.device)
     )
-    return torch.cat([ob[:, :3], vel], dim=1).contiguous(), n
+    return torch.cat([ob[..., :3], vel], dim=-1).contiguous(), ob.shape[-2]
 
 
 def fused_epilogue_plain(w_eps, filter_t, u):
@@ -108,10 +109,11 @@ def launch_tick(
     n_exploit, inv_temperature, obstacles, obstacle_velocities, robot_radius,
     safety_margin_rate, soft_safety_distance, soft_weight, control_weight,
     filter_t, eps, eps_mode, k_blk, K, T, W, last_only, collision, iso_xy,
+    k_offset=0.0, block_offset=0, s_only=False,
 ):
     """Check the inputs, allocate the outputs and launch ``dmm_mppi_tick``.
     Returns a dict of the output tensors (``eps`` is the (T, K, 2) buffer,
-    None when ε is regenerated)."""
+    None when ε is regenerated; with ``s_only`` only S is written)."""
     if collision not in _OBS_MODES:
         raise ValueError(f"collision must be 'circle' or 'soft', got {collision!r}")
     dev = u.device
@@ -150,6 +152,7 @@ def launch_tick(
         K=K, T=T, W=W, n_obs=n_obs, k_blk=k_blk, eps_mode=eps_mode,
         iso_xy=int(iso_xy), last_only=int(last_only), obs_mode=_OBS_MODES[collision],
         drift=int(obstacle_velocities is not None), fuse_epilogue=int(filter_t is not None),
+        block_offset=block_offset, s_only=int(s_only), k_offset=f32(k_offset),
         dt=f32(dt), n_exploit=f32(n_exploit), inv_temp=f32(inv_temperature),
         obs_radius=f32(effective_robot_radius(robot_radius, safety_margin_rate)),
         soft_dist=f32(soft_safety_distance), soft_w=f32(soft_weight),

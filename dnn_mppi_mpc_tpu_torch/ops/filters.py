@@ -101,11 +101,11 @@ def filter_tensor(kind_value: str, T: int, window: int, polyorder: int, dtype, d
 
 
 def apply_filter(x: torch.Tensor, kind, window: int, polyorder: int = 3) -> torch.Tensor:
-    """Smooth the (T, d) sequence ``x`` along axis 0."""
+    """Smooth the (..., T, d) sequences ``x`` along their T axis."""
     kind = SmoothingFilter(kind)
     if kind == SmoothingFilter.NONE:
         return x
-    F = filter_tensor(kind.value, x.shape[0], window, polyorder, x.dtype, x.device)
+    F = filter_tensor(kind.value, x.shape[-2], window, polyorder, x.dtype, x.device)
     return matmul_f32(F, x)
 
 

@@ -1,6 +1,6 @@
 """Windowed nearest-waypoint lookup (counterpart of
 ``dnn_mppi_mpc_tpu/ops/waypoints.py``; the per-rollout carried variant is
-still to be ported).
+still to be ported), for one controller and for a fleet of B.
 
 The window start is a device tensor and the window is a device gather, so a
 control tick never waits on the host for it.
@@ -47,4 +47,36 @@ def nearest_waypoint(
     return local + start, ref
 
 
-__all__ = ["nearest_waypoint", "waypoint_window"]
+def fleet_waypoint_windows(
+    ref_path: torch.Tensor, start_idx: torch.Tensor, search_len: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`waypoint_window` for B members: ``start_idx`` (B,) and a shared
+    (P, d) or per-member (B, P, d) path. Returns ``(start (B,), windows
+    (B, W, d))``."""
+    P = ref_path.shape[-2]
+    W = min(search_len, P)
+    start = torch.clamp(start_idx.to(torch.int64), 0, max(P - W, 0))
+    rows = start[:, None] + torch.arange(W, dtype=torch.int64, device=ref_path.device)
+    if ref_path.dim() == 3:
+        windows = torch.gather(ref_path, 1, rows[..., None].expand(-1, -1, ref_path.shape[-1]))
+    else:
+        windows = ref_path.index_select(0, rows.reshape(-1)).reshape(rows.shape + ref_path.shape[1:])
+    return start, windows
+
+
+def fleet_nearest_waypoint(
+    ref_path: torch.Tensor, xy: torch.Tensor, start_idx: torch.Tensor, search_len: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`nearest_waypoint` for B members, one query point each: ``xy``
+    (B, 2), ``start_idx`` (B,), a shared (P, d) or per-member (B, P, d)
+    path (the vmapped ``advance`` of the JAX fleet step). Returns ``(idx (B,),
+    ref (B, d))``."""
+    start, windows = fleet_waypoint_windows(ref_path, start_idx, search_len)
+    d2 = ((xy[:, None, :2] - windows[..., :2]) ** 2).sum(-1)  # (B, W)
+    local = torch.argmin(d2, dim=-1)
+    ref = torch.gather(windows, 1, local[:, None, None].expand(-1, 1, windows.shape[-1]))[:, 0]
+    return local + start, ref
+
+
+__all__ = ["fleet_nearest_waypoint", "fleet_waypoint_windows", "nearest_waypoint",
+           "waypoint_window"]

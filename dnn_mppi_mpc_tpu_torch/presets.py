@@ -8,6 +8,12 @@ W = 20 waypoint window over a 200-point line from (0, 0) to (20, −10).
 :func:`racecar_mppi` is the counterpart of the JAX package's
 ``presets.racecar_mppi``: the race car (kinematic bicycle, polygon
 collision) as one :class:`MPPISolver` and its params.
+
+:func:`mppi_fleet` is the problem of the JAX suite's ``mppi_fleet`` row
+(``utils/benchsuite.py:223-258``): B diff-drive controllers, each tracking
+its own line, through the fleet tick.
+
+Each runs on the card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -27,17 +33,22 @@ from .config import (
 )
 from .models.dynamics import BicycleParams, kinematic_bicycle, unicycle
 from .models.integrators import euler_step
+from .paths.generators import line
 from .solvers.mppi import (
     MPPISolver,
+    MPPIState,
     make_cuda_bicycle_rollout,
     make_cuda_bicycle_tick,
+    make_fleet_fused_mppi_step,
     make_tracking_costs,
+    resolve_device,
 )
 
 
-def flagship(num_samples: int = 10240, horizon: int = 50, device="cpu"):
+def flagship(num_samples: int = 10240, horizon: int = 50, device="cuda"):
     """(cfg, params, step_fn, stage_cost, terminal_cost) of the flagship
     diff-drive tracking problem, with params on ``device``."""
+    device = resolve_device(device)
     dt = 0.02  # 50 Hz control budget
     cfg = MPPIConfig(
         num_samples=num_samples,
@@ -100,7 +111,7 @@ def racecar_mppi(
     gaussian: str = "hash",
     iso_xy: Optional[bool] = None,
     sincos: str = "native",
-    device="cpu",
+    device="cuda",
     **overrides,
 ) -> tuple[MPPISolver, MPPIParams]:
     """Race-car MPPI (kinematic bicycle) with polygon collision when
@@ -118,6 +129,7 @@ def racecar_mppi(
     ``solver.dynamics_step`` is the Euler bicycle step, the plant of a
     closed loop. ``ref_path`` and ``obstacles`` may be tensors or arrays;
     the params live on ``device``."""
+    device = resolve_device(device)
     if fused_tick or use_kernel:
         num_samples = _lane_rounded_samples(num_samples)
     kw = dict(
@@ -178,4 +190,39 @@ def racecar_mppi(
     return solver, params
 
 
-__all__ = ["flagship", "racecar_mppi"]
+def mppi_fleet(B: int = 16, num_samples: int = 1024, horizon: int = 50, device="cuda"):
+    """(fleet step, params, initial states, plant) of the JAX suite's
+    ``mppi_fleet`` row: B unicycles at dt 0.05 with W = 20, Σ = diag(0.2,
+    0.1), weights (8, 8, 2), u ∈ [(−3, −3.14), (3, 3.14)], the other
+    :class:`MPPIConfig` fields at their defaults; member b tracks an
+    80-point line from the origin to goal b of
+    ``np.random.default_rng(0).uniform(-4, 4, (B, 2))`` and starts from the
+    key ``PRNGKey(b)`` (raw words [0, b]). The step is
+    :func:`make_fleet_fused_mppi_step`; ``step.cfg`` is its config. The plant
+    is the Euler unicycle step, which takes (B, 3) states and (B, 2)
+    controls."""
+    device = resolve_device(device)
+    dt = 0.05
+    cfg = MPPIConfig(num_samples=num_samples, horizon=horizon, dim_x=3, dim_u=2, dt=dt,
+                     waypoint_search_len=20)
+    goals = np.random.default_rng(0).uniform(-4, 4, (B, 2)).astype(np.float32)
+    paths = torch.stack([line([0.0, 0.0], g, num_points=80) for g in goals])
+    params = params_from_numpy(
+        sigma=[[0.2, 0.0], [0.0, 0.1]],
+        stage_weight=[8.0, 8.0, 2.0],
+        terminal_weight=[8.0, 8.0, 2.0],
+        u_min=[-3.0, -3.14],
+        u_max=[3.0, 3.14],
+        ref_path=paths,
+        device=device,
+    )
+
+    def plant(x, u):
+        return euler_step(unicycle, x, u, dt)
+
+    step = make_fleet_fused_mppi_step(cfg, plant, device=device)
+    states = MPPIState.fleet(cfg, [[0, b] for b in range(B)], device=device)
+    return step, params, states, plant
+
+
+__all__ = ["flagship", "mppi_fleet", "racecar_mppi"]

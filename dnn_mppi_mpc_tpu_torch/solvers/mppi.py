@@ -5,8 +5,8 @@ JAX engine's semantics: exploration split, in-rollout clamp, stage cost +
 γ·uᵀΣ⁻¹v, softmax weights with ρ = min S, weighted update over the
 unclamped ε, smoothing filter, non-finite hold, receding-horizon shift.
 
-Three ways to run a tick, chosen by :class:`MPPISolver` with the JAX
-package's routing rule:
+Three ways to run a tick of one controller, chosen by :class:`MPPISolver`
+with the JAX package's routing rule:
 
 * the scan path (a Python loop over T on (K, ...) tensors) — the port's own
   oracle, fed injected ``noise`` or a ``torch.Generator``;
@@ -18,16 +18,21 @@ package's routing rule:
   :func:`make_cuda_diffdrive_tick_blocked` at pod-scale K, or the race car's
   :func:`make_cuda_bicycle_tick`).
 
+A fleet of B independent controllers ticks in one kernel pipeline through
+:func:`make_fleet_fused_mppi_step` (batched :class:`MPPIState`, leading B);
+the sample-sharded tick and the sharded fleet are in ``parallel/sharding.py``.
+
 The tracking costs cover the diff-drive robot (circle or soft obstacles) and
 the race car (wrapped yaw, the vehicle polygon against circles).
 
 No step waits on the host: the waypoint window start, the tick seed and the
-carried key stay on the device.
+carried key stay on the device. Entry points run on the card unless the
+caller passes ``device="cpu"``.
 
 Not ported yet (each raises ``ValueError``, never ignored):
-``waypoint_carry="rollout"``, the generic tick (``tile_dynamics``), fleets
-and sharding, and the TPU-only tuning knobs (``lean``, ``fold_anchor``,
-``sincos`` modes, hardware Gaussians).
+``waypoint_carry="rollout"``, the generic tick (``tile_dynamics``), the
+vmapped scan fleet, and the TPU-only tuning knobs (``lean``,
+``fold_anchor``, ``sincos`` modes, hardware Gaussians).
 """
 
 from __future__ import annotations
@@ -38,7 +43,13 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import CostAccumulation, MPPIConfig, MPPIParams
+from ..config import (
+    CostAccumulation,
+    MPPIConfig,
+    MPPIParams,
+    SmoothingFilter,
+    resolve_device,
+)
 from ..ops.costs import (
     COLLISION_PENALTY,
     circle_robot_collision,
@@ -46,35 +57,66 @@ from ..ops.costs import (
     vehicle_polygon_collision,
 )
 from ..ops.cuda.common import f32
-from ..ops.filters import apply_filter, filter_matrix, matmul_f32
+from ..ops.filters import apply_filter, filter_matrix, filter_tensor, matmul_f32
 from ..ops.sampling import sample_noise, sigma_inverse, small_cholesky
-from ..ops.waypoints import nearest_waypoint, waypoint_window
+from ..ops.waypoints import (
+    fleet_nearest_waypoint,
+    fleet_waypoint_windows,
+    nearest_waypoint,
+    waypoint_window,
+)
 
 # Weyl increments of the carried key (two uint32 words) per fused tick
 _KEY_WEYL = (0x9E3779B9, 0x85EBCA6B)
 
 
+def _key_words(key, device) -> torch.Tensor:
+    """Raw uint32 key words (a tensor, or anything numpy reads) as int64 on
+    ``device``."""
+    if not isinstance(key, torch.Tensor):
+        key = torch.from_numpy(np.asarray(key, np.uint32).astype(np.int64))
+    return key.to(device=device, dtype=torch.int64)
+
+
 @dataclasses.dataclass
 class MPPIState:
-    """Per-controller carry: nominal sequence, waypoint window start, key."""
+    """Per-controller carry: nominal sequence, waypoint window start, key.
+    A fleet's state carries a leading member axis B on every leaf."""
 
-    u_prev: torch.Tensor  # (T, dim_u) float32
-    waypoint_idx: torch.Tensor  # () int64
-    key: torch.Tensor  # (2,) int64 holding two uint32 words
+    u_prev: torch.Tensor  # (T, dim_u) float32; (B, T, dim_u) for a fleet
+    waypoint_idx: torch.Tensor  # () int64; (B,)
+    key: torch.Tensor  # (2,) int64 holding two uint32 words; (B, 2)
 
     @classmethod
-    def init(cls, cfg: MPPIConfig, key=None, device="cpu") -> "MPPIState":
-        key = torch.zeros(2, dtype=torch.int64) if key is None else key
+    def init(cls, cfg: MPPIConfig, key=None, device="cuda") -> "MPPIState":
+        device = resolve_device(device)
+        key = [0, 0] if key is None else key
         return cls(
             u_prev=torch.zeros((cfg.horizon, cfg.dim_u), dtype=torch.float32, device=device),
             waypoint_idx=torch.zeros((), dtype=torch.int64, device=device),
-            key=torch.as_tensor(key, dtype=torch.int64).to(device),
+            key=_key_words(key, device),
+        )
+
+    @classmethod
+    def fleet(cls, cfg: MPPIConfig, keys, device="cuda") -> "MPPIState":
+        """The initial state of B controllers from their (B, 2) raw uint32
+        keys (the JAX fleet's ``vmap(MPPIState.init)`` over
+        ``vmap(PRNGKey)(arange(B))`` has keys [[0, b]])."""
+        device = resolve_device(device)
+        keys = _key_words(keys, device)
+        B = keys.shape[0]
+        return cls(
+            u_prev=torch.zeros((B, cfg.horizon, cfg.dim_u), dtype=torch.float32, device=device),
+            waypoint_idx=torch.zeros((B,), dtype=torch.int64, device=device),
+            key=keys,
         )
 
 
-def state_from_numpy(u_prev, waypoint_idx, key, *, device="cpu") -> MPPIState:
+def state_from_numpy(u_prev, waypoint_idx, key, *, device="cuda") -> MPPIState:
     """:class:`MPPIState` on ``device`` from the JAX package's ``MPPIState``
-    leaves as numpy arrays (``key`` the raw (2,) uint32 key data)."""
+    leaves as numpy arrays (``key`` the raw (2,) uint32 key data). Batched
+    leaves — a JAX fleet's (B, T, 2), (B,) and (B, 2) — give a fleet state."""
+    device = resolve_device(device)
     return MPPIState(
         u_prev=torch.tensor(np.asarray(u_prev, np.float32), device=device),
         waypoint_idx=torch.as_tensor(np.asarray(waypoint_idx, np.int64), device=device),
@@ -84,14 +126,18 @@ def state_from_numpy(u_prev, waypoint_idx, key, *, device="cpu") -> MPPIState:
 
 def tick_seed(key: torch.Tensor) -> torch.Tensor:
     """The fused tick's seed, w0 ^ w1 of the carried key, as a (1,) int64
-    device tensor (the kernel reads it through a pointer)."""
-    return (key[0] ^ key[1]).reshape(1)
+    device tensor (the kernel reads it through a pointer); a fleet's (B, 2)
+    keys give its (B,) seeds."""
+    return (key[..., 0] ^ key[..., 1]).reshape(-1)
 
 
 def advance_key(key: torch.Tensor) -> torch.Tensor:
-    """Next carried key: each word plus its Weyl increment, mod 2³² (scalar
-    adds on the device: no host→device copy, so no stream sync)."""
-    return torch.stack([key[0] + _KEY_WEYL[0], key[1] + _KEY_WEYL[1]]) & 0xFFFFFFFF
+    """Next carried key(s), (2,) or (B, 2): each word plus its Weyl
+    increment, mod 2³² (scalar adds on the device: no host→device copy, so no
+    stream sync)."""
+    return torch.stack(
+        [key[..., 0] + _KEY_WEYL[0], key[..., 1] + _KEY_WEYL[1]], dim=-1
+    ) & 0xFFFFFFFF
 
 
 class CostContext(NamedTuple):
@@ -296,31 +342,37 @@ def _scan_rollout(cfg, dynamics_step, stage_cost, terminal_cost, params, ctx, u,
 
 
 def _optimal_traj(cfg, dynamics_step, params, x0, u_new):
+    """(..., T, dim_x) rollout of the updated sequence(s) u_new (..., T, dim_u)."""
     if not cfg.compute_optimal_traj:
-        return torch.zeros((cfg.horizon,) + x0.shape, dtype=u_new.dtype, device=u_new.device)
+        return torch.zeros(x0.shape[:-1] + (cfg.horizon, x0.shape[-1]), dtype=u_new.dtype,
+                           device=u_new.device)
     dyn_t = _time_indexed(cfg, dynamics_step)
     xs, x = [], x0
     for t in range(cfg.horizon):
-        x = dyn_t(x, torch.clamp(u_new[t], params.u_min, params.u_max), t)
+        x = dyn_t(x, torch.clamp(u_new[..., t, :], params.u_min, params.u_max), t)
         xs.append(x)
-    return torch.stack(xs)
+    return torch.stack(xs, dim=-2)
 
 
 def _status(params, wp_idx, finite):
-    end_of_path = (wp_idx >= params.ref_path.shape[0] - 1).to(torch.int64)
+    # a fleet's per-member (B, P, d) path: member 0's length P, as the JAX
+    # fleet tail reads it
+    end_of_path = (wp_idx >= params.ref_path.shape[-2] - 1).to(torch.int64)
     return end_of_path + 2 * torch.logical_not(finite).to(torch.int64)
 
 
 def _mppi_tail(cfg, dynamics_step, params, x0, u, key, wp_idx, S, w, w_eps):
-    """Tick tail: smoothing, update, non-finite hold, shift, diagnostics."""
+    """Tick tail: smoothing, update, non-finite hold, shift, diagnostics —
+    for one controller, or written over a fleet's leading member axis (each
+    member held on its own non-finite update)."""
     w_eps = apply_filter(w_eps, cfg.filter, cfg.filter_window, cfg.savgol_polyorder)
     u_new = u + w_eps
     optimal_traj = _optimal_traj(cfg, dynamics_step, params, x0, u_new)
-    finite = torch.isfinite(u_new).all()
-    u_new = torch.where(finite, u_new, u)
-    u_shift = torch.cat([u_new[1:], u_new[-1:]], dim=0)
+    finite = torch.isfinite(u_new).all(-1).all(-1)
+    u_new = torch.where(finite[..., None, None], u_new, u)
+    u_shift = torch.cat([u_new[..., 1:, :], u_new[..., -1:, :]], dim=-2)
     aux = MPPIAux(S, w, optimal_traj, wp_idx, _status(params, wp_idx, finite))
-    return u_new[0], MPPIState(u_prev=u_shift, waypoint_idx=wp_idx, key=key), aux
+    return u_new[..., 0, :], MPPIState(u_prev=u_shift, waypoint_idx=wp_idx, key=key), aux
 
 
 def _mppi_tail_fused(cfg, dynamics_step, params, x0, key, wp_idx, S, w, u_new, u_shift, finite):
@@ -391,6 +443,19 @@ def _check_iso_weights(params: MPPIParams) -> None:
                 f"iso_xy=True requires symmetric x/y weights, got ({w0}, {w1}) "
                 "— drop iso_xy or symmetrize"
             )
+
+
+class _IsoCheck:
+    """For ``iso_xy``: checks the weights of each new params object once, so
+    the host read stays out of the ticks that follow."""
+
+    def __init__(self):
+        self.last = None
+
+    def __call__(self, params: MPPIParams) -> None:
+        if params is not self.last:
+            _check_iso_weights(params)
+            self.last = params
 
 
 def make_cuda_diffdrive_rollout(
@@ -614,6 +679,105 @@ def make_cuda_bicycle_tick(
     return tick
 
 
+def _on_device(device, **tensors) -> None:
+    """Raise unless every given tensor lies on ``device``: a step built for
+    one device does not run on another."""
+    for name, t in tensors.items():
+        if t.device != device:
+            raise ValueError(
+                f"{name} is on {t.device}, but this step was built for {device} "
+                "(pass device= to run it elsewhere)"
+            )
+
+
+def _warm_filter(cfg: MPPIConfig, device: torch.device) -> None:
+    """Copy the smoothing filter to ``device`` once, at construction, so the
+    first tick does not wait for a host-to-device copy (and a missing card
+    is reported here)."""
+    if cfg.filter != SmoothingFilter.NONE:
+        filter_tensor(cfg.filter.value, cfg.horizon, cfg.filter_window, cfg.savgol_polyorder,
+                      torch.float32, device)
+
+
+def make_fleet_fused_mppi_step(
+    cfg: MPPIConfig,
+    dynamics_step: Callable,
+    robot_radius: float = 0.5,
+    collision: str = "circle",
+    soft_safety_distance: float = 2.0,
+    soft_weight: float = 100.0,
+    iso_xy: bool = False,
+    sincos: str = "native",
+    safety_margin_rate: float = 1.5,
+    device="cuda",
+):
+    """B independent diff-drive MPPI controllers per tick, the counterpart of
+    the JAX ``make_fleet_fused_mppi_step`` (``solvers/mppi.py:1514``).
+
+    Returns ``step(params, states, x0s) -> (u0s, states, auxs)``: ``params``
+    is one shared :class:`MPPIParams` whose ``ref_path`` (and optional
+    ``obstacles`` / ``obstacle_velocities``) may carry a leading member axis
+    for per-member references; ``states`` is a fleet :class:`MPPIState`
+    (leading B, :meth:`MPPIState.fleet`); ``x0s`` is (B, 3). The sample-space
+    work of all B members is one call of ``fleet_mppi_tick`` (ε from each
+    member's carried key through the hash stream); the waypoint search and
+    the tick tail are written over the member axis, not a loop.
+
+    ``sincos``: the JAX default is ``"poly"``, a TPU-only polynomial; the
+    port's kernels use ``sincosf``, so the default here is ``"native"`` and
+    ``"poly"`` raises, as in every other binder. ``num_rollout_repeats > 1``
+    and ``params.control_weight`` raise, as in JAX. The step runs on
+    ``device``; tensors elsewhere raise ``ValueError``."""
+    from ..ops.cuda.mppi_tick_blocked import fleet_mppi_tick
+
+    _check_tick_carry(cfg)
+    _reject_unported(sincos=sincos)
+    _reject_repeats(cfg, "fleet fused tick")
+    _check_kernel_collision(collision)
+    device = resolve_device(device)
+    _warm_filter(cfg, device)
+    iso_check = _IsoCheck()
+
+    def step(params: MPPIParams, states: MPPIState, x0s: torch.Tensor):
+        if params.control_weight is not None:
+            raise ValueError(
+                "params.control_weight (the pytorch_mppi action cost) is not "
+                "implemented in the fleet tick — use per-member MPPISolver steps"
+            )
+        u = states.u_prev  # (B, T, nu)
+        _on_device(device, u_prev=u, x0s=x0s, ref_path=params.ref_path)
+        if iso_xy:
+            iso_check(params)
+        B = x0s.shape[0]
+        x0s = x0s.to(u.dtype)
+        wp_idx, _ = fleet_nearest_waypoint(
+            params.ref_path, x0s[:, :2], states.waypoint_idx, cfg.waypoint_search_len
+        )
+        _, windows = fleet_waypoint_windows(params.ref_path, wp_idx, cfg.waypoint_search_len)
+        obstacles, velocities = params.obstacles, params.obstacle_velocities
+        if obstacles is not None and obstacles.dim() == 2:
+            obstacles = obstacles.expand((B,) + obstacles.shape)
+        if velocities is not None and velocities.dim() == 2:
+            velocities = velocities.expand((B,) + velocities.shape)
+        S, w, w_eps = fleet_mppi_tick(
+            tick_seed(states.key), u.contiguous(), _energy_rows(cfg, params, u),
+            small_cholesky(params.sigma), x0s.contiguous(), windows[..., :3].contiguous(),
+            params.stage_weight, params.terminal_weight, params.u_min, params.u_max,
+            cfg.dt, (1.0 - cfg.exploration) * cfg.num_samples, cfg.inv_temperature,
+            obstacles=obstacles, robot_radius=robot_radius,
+            safety_margin_rate=safety_margin_rate, obstacle_velocities=velocities,
+            soft_safety_distance=soft_safety_distance, soft_weight=soft_weight,
+            B=B, K=cfg.num_samples, T=cfg.horizon, W=windows.shape[1],
+            last_only=cfg.accumulation == CostAccumulation.LAST,
+            collision=collision, iso_xy=iso_xy,
+        )
+        return _mppi_tail(cfg, dynamics_step, params, x0s, u, advance_key(states.key), wp_idx,
+                          S, w, w_eps)
+
+    step.cfg = cfg
+    return step
+
+
 # The JAX package's routing rule between the single-block and the K-blocked
 # tick (its TPU VMEM budget), kept so that both packages route a
 # configuration to the same kernel.
@@ -641,8 +805,9 @@ class MPPISolver:
     ``fused_tick=True`` binds the fused tick, or the K-blocked tick when
     16·T·K bytes exceed 10 MiB (the JAX package's rule); ``use_kernel``
     (default ``cfg.use_kernel``) binds the split rollout kernel otherwise.
-    Tensors on ``device`` decide where each tick runs: a CUDA device
-    launches the kernels, the CPU runs their plain versions.
+    Tensors on ``device`` decide where each tick runs: a CUDA device (the
+    default) launches the kernels, ``device="cpu"`` runs their plain
+    versions.
     """
 
     def __init__(
@@ -667,7 +832,7 @@ class MPPISolver:
         fold_anchor: Optional[bool] = None,
         lean: Optional[bool] = None,
         sincos: str = "native",
-        device="cpu",
+        device="cuda",
         seed: int = 0,
     ) -> None:
         _check_tick_carry(cfg)
@@ -686,7 +851,7 @@ class MPPISolver:
         self.dynamics_step = dynamics_step
         self.stage_cost = stage_cost
         self.terminal_cost = terminal_cost
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         if tick_fn is None and fused_tick:
             if _EPS_BYTES_PER_SAMPLE_STEP * cfg.horizon * cfg.num_samples > _SINGLE_BLOCK_VMEM_BUDGET:
@@ -709,7 +874,7 @@ class MPPISolver:
             )
         self.rollout_fn = rollout_fn
         self.tick_fn = tick_fn
-        self._iso_checked: Optional[MPPIParams] = None
+        self._iso_check = _IsoCheck()
 
     def init(self, key=None) -> MPPIState:
         return MPPIState.init(self.cfg, key, device=self.device)
@@ -721,9 +886,8 @@ class MPPISolver:
         x0: torch.Tensor,
         noise: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, MPPIState, MPPIAux]:
-        if getattr(self.tick_fn, "iso_xy", False) and params is not self._iso_checked:
-            _check_iso_weights(params)  # once per params object
-            self._iso_checked = params
+        if getattr(self.tick_fn, "iso_xy", False):
+            self._iso_check(params)
         return mppi_step(
             self.cfg, self.dynamics_step, self.stage_cost, self.terminal_cost,
             params, state, x0, noise, rollout_fn=self.rollout_fn,
@@ -742,8 +906,10 @@ __all__ = [
     "make_cuda_diffdrive_rollout",
     "make_cuda_diffdrive_tick",
     "make_cuda_diffdrive_tick_blocked",
+    "make_fleet_fused_mppi_step",
     "make_tracking_costs",
     "mppi_step",
+    "resolve_device",
     "state_from_numpy",
     "tick_seed",
 ]

@@ -71,7 +71,7 @@ def _problem(K=512, T=12, W=8, collision="none", params_kw=None, **cfg_kw):
     p.update({k: np.asarray(v, np.float32) for k, v in (params_kw or {}).items()})
     jc, tc = _cfg(jcfg, kw), _cfg(tcfg, kw)
     jp = jcfg.MPPIParams(**{k: jnp.asarray(v) for k, v in p.items()})
-    tp = tcfg.params_from_numpy(**p)
+    tp = tcfg.params_from_numpy(**p, device="cpu")
     jsc, jtc = jmppi.make_tracking_costs(jc, collision=collision)
     tsc, ttc = tmppi.make_tracking_costs(tc, collision=collision)
     return (jc, jp, lambda x, u: j_euler(j_unicycle, x, u, DT), jsc, jtc), (
@@ -101,7 +101,8 @@ def test_closed_loop_fused_tick_matches_jax(iso_xy):
                                              fuse_epilogue=True, iso_xy=iso_xy)
     jrun = jax.jit(lambda p, s, x, n: jmppi.mppi_step(jc, jstep, jsc, jtc, p, s, x, n,
                                                       tick_fn=jtick))
-    solver = tmppi.MPPISolver(tc, tstep, tsc, ttc, fused_tick=True, iso_xy=iso_xy)
+    solver = tmppi.MPPISolver(tc, tstep, tsc, ttc, fused_tick=True, iso_xy=iso_xy,
+                              device="cpu")
     assert solver.tick_fn.__qualname__.startswith("make_cuda_diffdrive_tick.")
     x_j = jnp.array([0.0, 0.2, 0.0], jnp.float32)
     x_t = torch.tensor([0.0, 0.2, 0.0])
@@ -147,8 +148,8 @@ def test_scan_path_matches_jax(case):
     u_j, st_j, aux_j = jax.jit(
         lambda p, s, x, n: jmppi.mppi_step(jc, jstep, jsc, jtc, p, s, x, n)
     )(jp, st_j, jnp.asarray(x0), jnp.asarray(eps))
-    solver = tmppi.MPPISolver(tc, tstep, tsc, ttc)
-    u_t, st_t, aux_t = solver.step(tp, tmppi.state_from_numpy(u_prev, 2, [0, 0]),
+    solver = tmppi.MPPISolver(tc, tstep, tsc, ttc, device="cpu")
+    u_t, st_t, aux_t = solver.step(tp, tmppi.state_from_numpy(u_prev, 2, [0, 0], device="cpu"),
                                    torch.as_tensor(x0), torch.as_tensor(eps))
     np.testing.assert_allclose(aux_t.costs.numpy(), np.asarray(aux_j.costs), rtol=2e-4, atol=2e-4)
     np.testing.assert_allclose(aux_t.weights.numpy(), np.asarray(aux_j.weights),
@@ -172,7 +173,7 @@ def test_split_rollout_path_matches_jax():
     u_j, st_j, aux_j = jax.jit(
         lambda p, s, x, n: jmppi.mppi_step(jc, jstep, jsc, jtc, p, s, x, n, rollout_fn=rollout)
     )(jp, jmppi.MPPIState.init(jc), jnp.asarray(x0), jnp.asarray(eps))
-    solver = tmppi.MPPISolver(tc, tstep, tsc, ttc, use_kernel=True)
+    solver = tmppi.MPPISolver(tc, tstep, tsc, ttc, use_kernel=True, device="cpu")
     assert solver.rollout_fn is not None and solver.tick_fn is None
     u_t, st_t, aux_t = solver.step(tp, solver.init(), torch.as_tensor(x0), torch.as_tensor(eps))
     np.testing.assert_allclose(aux_t.costs.numpy(), np.asarray(aux_j.costs), rtol=2e-4, atol=2e-4)
@@ -191,7 +192,7 @@ def test_split_rollout_path_matches_jax():
 )
 def test_solver_routes_like_jax(K, T, kw, route):
     cfg, params, step, stage, terminal = presets.flagship(K, T, "cpu")
-    solver = tmppi.MPPISolver(cfg, step, stage, terminal, **kw)
+    solver = tmppi.MPPISolver(cfg, step, stage, terminal, device="cpu", **kw)
     fn = solver.tick_fn or solver.rollout_fn
     assert fn.__qualname__.split(".")[0] == route
     if route.endswith("_blocked"):
@@ -235,7 +236,7 @@ def test_unported_options_raise_at_construction(case):
     cfg_kw, solver_kw, match = GUARDS[case]
     cfg, params, step, stage, terminal = _flag(**cfg_kw)
     with pytest.raises(ValueError, match=match):
-        tmppi.MPPISolver(cfg, step, stage, terminal, **solver_kw)
+        tmppi.MPPISolver(cfg, step, stage, terminal, device="cpu", **solver_kw)
 
 
 def test_polygon_collision_raises():
@@ -246,7 +247,7 @@ def test_polygon_collision_raises():
     for K in (1024, 102400):  # the fused tick and the K-blocked tick
         with pytest.raises(ValueError, match="polygon"):
             tmppi.MPPISolver(dataclasses.replace(cfg, num_samples=K), step, stage, terminal,
-                             fused_tick=True, collision="polygon")
+                             fused_tick=True, collision="polygon", device="cpu")
     with pytest.raises(ValueError, match="collision"):
         tmppi.make_tracking_costs(cfg, collision="ellipse")
 
@@ -254,7 +255,7 @@ def test_polygon_collision_raises():
 def test_runtime_guards_raise():
     cfg, params, step, stage, terminal = _flag()
     x0 = torch.zeros(3)
-    split = tmppi.MPPISolver(cfg, step, stage, terminal, use_kernel=True)
+    split = tmppi.MPPISolver(cfg, step, stage, terminal, use_kernel=True, device="cpu")
     with pytest.raises(ValueError, match="control_weight"):
         split.step(dataclasses.replace(params, control_weight=torch.tensor([0.1, 0.1])),
                    split.init(), x0)
@@ -266,7 +267,8 @@ def test_runtime_guards_raise():
 
 def test_iso_xy_weights_checked_once_per_params(monkeypatch):
     cfg, params, step, stage, terminal = _flag()
-    solver = tmppi.MPPISolver(cfg, step, stage, terminal, fused_tick=True, iso_xy=True)
+    solver = tmppi.MPPISolver(cfg, step, stage, terminal, fused_tick=True, iso_xy=True,
+                              device="cpu")
     calls = []
     real = tmppi._check_iso_weights
     monkeypatch.setattr(tmppi, "_check_iso_weights", lambda p: calls.append(1) or real(p))
@@ -279,6 +281,50 @@ def test_iso_xy_weights_checked_once_per_params(monkeypatch):
         solver.step(bad, st, x0)
 
 
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("checks the default device on a machine without a card")
+
+
+def _flag_solver(**kw):
+    cfg, _, step, stage, terminal = _flag()
+    return tmppi.MPPISolver(cfg, step, stage, terminal, fused_tick=True, **kw)
+
+
+DEVICE_DEFAULTS = {
+    "MPPISolver": lambda device: _flag_solver(**device),
+    "MPPIState.init": lambda device: tmppi.MPPIState.init(_flag()[0], **device),
+    "presets.flagship": lambda device: presets.flagship(1024, 20, **device),
+    "presets.racecar_mppi": lambda device: presets.racecar_mppi(
+        np.zeros((10, 4), np.float32), num_samples=128, horizon=5, fused_tick=True, **device),
+    "presets.mppi_fleet": lambda device: presets.mppi_fleet(2, 128, 5, **device),
+    "params_from_numpy": lambda device: tcfg.params_from_numpy(
+        np.eye(2), np.ones(3), np.ones(3), -np.ones(2), np.ones(2), np.zeros((4, 3)), **device),
+    "state_from_numpy": lambda device: tmppi.state_from_numpy(
+        np.zeros((5, 2)), 0, [0, 0], **device),
+}
+
+
+@pytest.mark.parametrize("entry", list(DEVICE_DEFAULTS))
+def test_entry_points_default_to_the_card(entry):
+    """Without a device the entry points run on the card: with no card they
+    raise (no fallback to the CPU); with device="cpu" they work."""
+    _no_card()
+    make = DEVICE_DEFAULTS[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make({})
+    assert make({"device": "cpu"}) is not None
+
+
+def test_solver_without_device_raises_and_runs_on_cpu():
+    _no_card()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _flag_solver()
+    solver = _flag_solver(device="cpu")
+    u0, st, aux = solver.step(_flag()[1], solver.init(), torch.zeros(3))
+    assert u0.device.type == "cpu" and int(aux.status) == 0
+
+
 def test_port_never_imports_jax():
     code = (
         "import sys\n"
@@ -286,6 +332,7 @@ def test_port_never_imports_jax():
         "import dnn_mppi_mpc_tpu_torch, dnn_mppi_mpc_tpu_torch.presets\n"
         "import dnn_mppi_mpc_tpu_torch.solvers.mppi, dnn_mppi_mpc_tpu_torch.ops.cuda\n"
         "import dnn_mppi_mpc_tpu_torch.utils.benchtime, dnn_mppi_mpc_tpu_torch._build\n"
+        "import dnn_mppi_mpc_tpu_torch.parallel\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'dnn_mppi_mpc_tpu'))\n"
         "assert not bad, bad\n"

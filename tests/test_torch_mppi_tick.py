@@ -74,7 +74,7 @@ def _both(K, T, W, params_np, collision, accumulation="sum", **cfg_kw):
     jc = jcfg.MPPIConfig(**kw, accumulation=jcfg.CostAccumulation(accumulation))
     tc = tcfg.MPPIConfig(**kw, accumulation=tcfg.CostAccumulation(accumulation))
     jp = jcfg.MPPIParams(**{k: None if v is None else jnp.asarray(v) for k, v in params_np.items()})
-    tp = tcfg.params_from_numpy(**params_np)
+    tp = tcfg.params_from_numpy(**params_np, device="cpu")
     js, jt = jmppi.make_tracking_costs(jc, collision=collision)
     ts, tt = tmppi.make_tracking_costs(tc, collision=collision)
     jside = (jc, jp, lambda x, u: j_euler(j_unicycle, x, u, DT), js, jt)
@@ -102,7 +102,7 @@ def _tick_both(jside, tside, *, x0, u_prev, eps, collision, iso_xy, fuse=True):
         u_prev=jnp.asarray(u_prev), waypoint_idx=jnp.zeros((), jnp.int32),
         key=jnp.asarray([5, 9], jnp.uint32),
     )
-    tstate = tmppi.state_from_numpy(u_prev, 0, [5, 9])
+    tstate = tmppi.state_from_numpy(u_prev, 0, [5, 9], device="cpu")
     jout = jax.jit(
         lambda p, s, x, n: jmppi.mppi_step(jc, jstep, js, jt, p, s, x, n, tick_fn=jtick)
     )(jp, jstate, jnp.asarray(x0), jnp.asarray(eps))
@@ -260,8 +260,8 @@ def test_blocked_binder_rejects_injected_noise():
     tc, tp, tstep, ts, tt = tside
     tick = tmppi.make_cuda_diffdrive_tick_blocked(tc, k_block=1024)
     with pytest.raises(ValueError, match="PRNG-mode only"):
-        tmppi.mppi_step(tc, tstep, ts, tt, tp, tmppi.MPPIState.init(tc), torch.zeros(3),
-                        torch.zeros(K, T, 2), tick_fn=tick)
+        tmppi.mppi_step(tc, tstep, ts, tt, tp, tmppi.MPPIState.init(tc, device="cpu"),
+                        torch.zeros(3), torch.zeros(K, T, 2), tick_fn=tick)
 
 
 @pytest.mark.cuda

@@ -60,7 +60,7 @@ def test_params_and_state_from_numpy():
         obstacles=jnp.array([[1.0, 0.4, 0.3]], jnp.float32),
     )
     leaves = [None if v is None else np.asarray(v) for v in jp.tree_flatten()[0]]
-    tp = tcfg.params_from_numpy(*leaves)
+    tp = tcfg.params_from_numpy(*leaves, device="cpu")
     for name in ("sigma", "stage_weight", "terminal_weight", "u_min", "u_max", "ref_path",
                  "obstacles"):
         np.testing.assert_array_equal(getattr(tp, name).numpy(), np.asarray(getattr(jp, name)))
@@ -73,7 +73,7 @@ def test_params_and_state_from_numpy():
         waypoint_idx=jnp.asarray(3, jnp.int32),
         key=jnp.asarray([0xFFFFFFFF, 7], jnp.uint32),
     )
-    ts = state_from_numpy(*(np.asarray(v) for v in js.tree_flatten()[0]))
+    ts = state_from_numpy(*(np.asarray(v) for v in js.tree_flatten()[0]), device="cpu")
     assert ts.key.tolist() == [0xFFFFFFFF, 7] and ts.key.dtype == torch.int64
     assert int(ts.waypoint_idx) == 3
     np.testing.assert_array_equal(ts.u_prev.numpy(), np.ones((5, 2), np.float32))

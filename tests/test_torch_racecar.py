@@ -74,7 +74,7 @@ def _problem(obstacles=False, alpha=0.8, **cfg_kw):
         ("temperature", "Temperature"), ("accumulation", "CostAccumulation"),
         ("filter", "SmoothingFilter"))})
     jp = jcfg.MPPIParams(**{k: None if v is None else jnp.asarray(v) for k, v in p.items()})
-    tp = tcfg.params_from_numpy(**p)
+    tp = tcfg.params_from_numpy(**p, device="cpu")
     collision = "polygon" if obstacles else "none"
     jbp = JBicycleParams(wheel_base=jnp.asarray(2.5, jnp.float32))
     jstep = lambda x, u: j_euler(lambda s, a: j_bicycle(s, a, jbp), x, u, DT)  # noqa: E731
@@ -111,7 +111,8 @@ def _one_tick(jside, tside, eps, *, jkw=None, tkw=None, start=0):
     jout = jax.jit(lambda p, s, x, n: jmppi.mppi_step(jc, jstep, js, jt, p, s, x, n,
                                                       **(jkw or {})))(
         jp, jstate, jnp.asarray(X0), jnp.asarray(eps))
-    tout = tmppi.mppi_step(tc, tstep, ts, tt, tp, tmppi.state_from_numpy(u_prev, start, [0, 0]),
+    tstate = tmppi.state_from_numpy(u_prev, start, [0, 0], device="cpu")
+    tout = tmppi.mppi_step(tc, tstep, ts, tt, tp, tstate,
                            torch.as_tensor(X0), torch.as_tensor(eps), **(tkw or {}))
     return jout, tout
 
@@ -158,7 +159,7 @@ def test_closed_loop_fused_tick_matches_jax(f32_mode):
     jrun = jax.jit(lambda p, s, x, n: jmppi.mppi_step(jc, jstep, js, jt, p, s, x, n,
                                                       tick_fn=jtick))
     solver = tmppi.MPPISolver(tc, tstep, ts, tt, tick_fn=tmppi.make_cuda_bicycle_tick(
-        tc, iso_xy=True))
+        tc, iso_xy=True), device="cpu")
     x_j, x_t = jnp.asarray(X0), torch.as_tensor(X0)
     st_j, st_t = jmppi.MPPIState.init(jc), solver.init()
     for i in range(20):
@@ -180,7 +181,8 @@ def test_racecar_preset_matches_jax():
     ref = _ref()
     jsol, jp = jpresets.racecar_mppi(jnp.asarray(ref), num_samples=200, horizon=T,
                                      obstacles=jnp.asarray(OBSTACLES))
-    tsol, tp = presets.racecar_mppi(ref, num_samples=200, horizon=T, obstacles=OBSTACLES)
+    tsol, tp = presets.racecar_mppi(ref, num_samples=200, horizon=T, obstacles=OBSTACLES,
+                                    device="cpu")
     for f in dataclasses.fields(tsol.cfg):
         tv = getattr(tsol.cfg, f.name)
         jv = getattr(jsol.cfg, "use_pallas" if f.name == "use_kernel" else f.name)
@@ -205,7 +207,7 @@ def test_racecar_preset_matches_jax():
     ids=["fused_tick", "split_rollout", "scan"],
 )
 def test_racecar_preset_routes_and_rounds_k(kw, route):
-    solver, _ = presets.racecar_mppi(_ref(), num_samples=200, horizon=T, **kw)
+    solver, _ = presets.racecar_mppi(_ref(), num_samples=200, horizon=T, device="cpu", **kw)
     fn = solver.tick_fn or solver.rollout_fn
     assert (fn.__qualname__.split(".")[0] if fn else None) == route
     assert solver.cfg.num_samples == (200 if route is None else 256)
@@ -215,7 +217,7 @@ def test_racecar_preset_routes_and_rounds_k(kw, route):
 
 def test_racecar_preset_fused_tick_runs_on_cpu():
     solver, params = presets.racecar_mppi(_ref(), num_samples=256, horizon=T,
-                                          obstacles=OBSTACLES, fused_tick=True)
+                                          obstacles=OBSTACLES, fused_tick=True, device="cpu")
     st, x = solver.init(), torch.as_tensor(X0)
     for _ in range(3):
         u0, st, aux = solver.step(params, st, x)
@@ -238,13 +240,13 @@ PRESET_GUARDS = {
 def test_racecar_preset_guards_raise(case):
     kw, match = PRESET_GUARDS[case]
     with pytest.raises(ValueError, match=match):
-        presets.racecar_mppi(_ref(), num_samples=256, horizon=T, **kw)
+        presets.racecar_mppi(_ref(), num_samples=256, horizon=T, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("route", ["fused_tick", "use_kernel"])
 def test_racecar_runtime_guards_raise(route):
     solver, params = presets.racecar_mppi(_ref(), num_samples=256, horizon=T,
-                                          obstacles=OBSTACLES, **{route: True})
+                                          obstacles=OBSTACLES, device="cpu", **{route: True})
     x0 = torch.as_tensor(X0)
     moving = dataclasses.replace(params, obstacle_velocities=torch.tensor([[0.1, 0.0]] * 2))
     with pytest.raises(ValueError, match="obstacle_velocities"):
