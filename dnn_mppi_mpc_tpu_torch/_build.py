@@ -99,6 +99,34 @@ class DmmBicycleArgs(ctypes.Structure):
     ]
 
 
+# DmmGenericArgs::c in csrc/generic_rollout.cuh: the tile step's constants
+GENERIC_CONSTANTS = 8
+
+
+class DmmGenericArgs(ctypes.Structure):
+    """ctypes mirror of ``struct DmmGenericArgs`` in csrc/generic_rollout.cuh."""
+
+    _fields_ = [
+        (name, ctypes.c_void_p)
+        for name in (
+            "seed", "u", "a", "chol", "x0", "window", "stage_w", "term_w",
+            "u_min", "u_max", "obstacles", "filter_t", "eps", "S", "w", "w_eps",
+            "stats", "u_new", "u_shift", "finite",
+        )
+    ] + [
+        (name, ctypes.c_int)
+        for name in (
+            "model", "K", "T", "W", "n_track", "n_obs", "eps_mode", "last_only",
+            "obs_mode", "drift", "wrap_yaw", "fuse_epilogue",
+        )
+    ] + [
+        (name, ctypes.c_float)
+        for name in (
+            "dt", "n_exploit", "k_offset", "inv_temp", "obs_radius", "soft_dist", "soft_w",
+        )
+    ] + [("c", ctypes.c_float * GENERIC_CONSTANTS)]
+
+
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
     cand = Path(home) / "bin" / "nvcc"
@@ -163,13 +191,17 @@ def load_kernels() -> ctypes.CDLL:
     lib.dmm_bicycle_args_size.restype = ctypes.c_int
     lib.dmm_fleet_args_size.argtypes = []
     lib.dmm_fleet_args_size.restype = ctypes.c_int
+    lib.dmm_generic_args_size.argtypes = []
+    lib.dmm_generic_args_size.restype = ctypes.c_int
     for fn in (lib.dmm_rollout_costs, lib.dmm_mppi_tick, lib.dmm_weighted_noise_reduce,
-               lib.dmm_fleet_mppi_tick, lib.dmm_bicycle_rollout_costs, lib.dmm_bicycle_tick):
+               lib.dmm_fleet_mppi_tick, lib.dmm_bicycle_rollout_costs, lib.dmm_bicycle_tick,
+               lib.dmm_generic_rollout_costs, lib.dmm_generic_tick):
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     for struct, size_fn in ((DmmArgs, lib.dmm_args_size),
                             (DmmFleetArgs, lib.dmm_fleet_args_size),
-                            (DmmBicycleArgs, lib.dmm_bicycle_args_size)):
+                            (DmmBicycleArgs, lib.dmm_bicycle_args_size),
+                            (DmmGenericArgs, lib.dmm_generic_args_size)):
         if size_fn() != ctypes.sizeof(struct):
             raise RuntimeError(
                 f"{struct.__name__} layout mismatch: C {size_fn()} bytes, "
@@ -194,6 +226,8 @@ __all__ = [
     "DmmArgs",
     "DmmBicycleArgs",
     "DmmFleetArgs",
+    "DmmGenericArgs",
+    "GENERIC_CONSTANTS",
     "build",
     "launch",
     "library_path",

@@ -135,9 +135,12 @@ __device__ __forceinline__ float dmm_tracking(float x, float y, float yaw, const
   return w0 * ex * ex + w1 * ey * ey + w2 * eyaw * eyaw;
 }
 
-// Obstacle cost at rollout time t_f (drift applied when `drift`).
+// Obstacle cost at rollout time t_f (drift applied when `drift`). `Args` is
+// any argument block with n_obs, obs_mode, obs_radius, soft_dist and soft_w
+// (DmmArgs, DmmGenericArgs).
+template <class Args>
 __device__ __forceinline__ float dmm_obstacle_cost(float xc, float yc, const float* obs,
-                                                   const DmmArgs& p, bool drift, float t_f) {
+                                                   const Args& p, bool drift, float t_f) {
   float pen = 0.0f;
   for (int o = 0; o < p.n_obs; ++o) {
     float ox = obs[5 * o], oy = obs[5 * o + 1];

@@ -9,7 +9,8 @@
 // Stream contract (mppi_tick_blocked.py:84-91): the sample at local index
 // `local` of block `block` at step t uses counter t * k_blk + local, i.e.
 // position (t, local / 128, local % 128) of hash_normal_pair(seed, block,
-// (T, k_blk / 128, 128)).
+// (T, k_blk / 128, 128)). A control of nu > 2 dimensions draws ⌈nu/2⌉ pairs
+// per step, pair p at counter (p·T + t)·k_blk + local (dmm_hash_normals).
 #pragma once
 
 #include <cstdint>
@@ -40,4 +41,31 @@ __device__ __forceinline__ void dmm_hash_normal_pair(uint32_t base, uint32_t ctr
   const float ang = 6.28318530717958647692f * u2;  // float32(2*pi) * u2
   *z0 = rad * cosf(ang);
   *z1 = rad * sinf(ang);
+}
+
+// The 2·⌈NU/2⌉ normals of the sample at local index `local` of a k_blk-sample
+// block at step t of T: pair p uses counter (p·T + t)·k_blk + local, so for
+// NU = 2 (p = 0 only) this is the stream above (ops/cuda/mathx.py
+// hash_noise). An odd NU leaves the second normal of the last pair unused.
+template <int NU>
+__device__ __forceinline__ void dmm_hash_normals(uint32_t base, int t, int T, int k_blk,
+                                                 uint32_t local, float* z) {
+#pragma unroll
+  for (int p = 0; p < (NU + 1) / 2; ++p) {
+    const uint32_t ctr = static_cast<uint32_t>(p * T + t) * static_cast<uint32_t>(k_blk) + local;
+    dmm_hash_normal_pair(base, ctr, &z[2 * p], &z[2 * p + 1]);
+  }
+}
+
+// ε_j = L[j,0]·z_0 + L[j,1]·z_1 + … + L[j,j]·z_j, left to right, with L the
+// (NU, NU) row-major lower Cholesky factor of Σ.
+template <int NU>
+__device__ __forceinline__ void dmm_color(const float* L, const float* z, float* e) {
+#pragma unroll
+  for (int j = 0; j < NU; ++j) {
+    float acc = L[j * NU] * z[0];
+#pragma unroll
+    for (int i = 1; i <= j; ++i) acc = acc + L[j * NU + i] * z[i];
+    e[j] = acc;
+  }
 }

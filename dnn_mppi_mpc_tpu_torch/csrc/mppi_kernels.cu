@@ -37,7 +37,8 @@
 // The reductions are small: a one-block pass (per member) for ρ = min S and
 // η = Σ exp(−λ(S−ρ)) (which also writes w), one block per t for Σₖ wₖ·εₖ
 // (both in mppi_reductions.cuh, shared with the bicycle tick), and a
-// one-block epilogue; each is a fixed-order tree, so results repeat
+// one-block epilogue (there too, shared with the generic tick); each is a
+// fixed-order tree, so results repeat
 // bit for bit from run to run. Not yet done (later work): splitting the W
 // search across lanes, regenerating ε in the single-block tick instead of
 // storing it, fusing the four launches.
@@ -88,45 +89,6 @@ __global__ void rollout_kernel(DmmArgs p0) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= p.K) return;
   p.S[k] = dmm_rollout_sample<ISO, LAST, GEN>(p, k, su, sa, swin, sobs);
-}
-
-// u_new = u + F·w_eps (fmaf, full f32), non-finite hold, horizon shift.
-// One block of >= T threads; thread t owns row t.
-__global__ void epilogue_kernel(DmmArgs p) {
-  extern __shared__ float un_s[];  // (T, 2)
-  const int t = threadIdx.x, T = p.T;
-  const bool active = t < T;
-  float un0 = 0.0f, un1 = 0.0f;
-  bool ok = true;
-  if (active) {
-    float acc0 = 0.0f, acc1 = 0.0f;
-    for (int s = 0; s < T; ++s) {
-      const float f = p.filter_t[s * T + t];
-      acc0 = fmaf(p.w_eps[2 * s], f, acc0);
-      acc1 = fmaf(p.w_eps[2 * s + 1], f, acc1);
-    }
-    un0 = p.u[2 * t] + acc0;
-    un1 = p.u[2 * t + 1] + acc1;
-    ok = isfinite(un0) && isfinite(un1);
-  }
-  const bool all_ok = __syncthreads_and(ok) != 0;
-  if (active) {
-    if (!all_ok) {
-      un0 = p.u[2 * t];
-      un1 = p.u[2 * t + 1];
-    }
-    p.u_new[2 * t] = un0;
-    p.u_new[2 * t + 1] = un1;
-    un_s[2 * t] = un0;
-    un_s[2 * t + 1] = un1;
-  }
-  __syncthreads();
-  if (active) {
-    const int src = t + 1 < T ? t + 1 : T - 1;
-    p.u_shift[2 * t] = un_s[2 * src];
-    p.u_shift[2 * t + 1] = un_s[2 * src + 1];
-  }
-  if (t == 0) p.finite[0] = all_ok ? 1.0f : 0.0f;
 }
 
 template <bool ISO, bool LAST>
@@ -181,11 +143,9 @@ int dmm_mppi_tick(const DmmArgs* args, void* stream) {
   err = p.eps_mode == 2 ? launch_reductions<true>(reduce_args(p), p.T, 1, s)
                         : launch_reductions<false>(reduce_args(p), p.T, 1, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (p.fuse_epilogue) {
-    const int threads = ((p.T + 31) / 32) * 32;
-    epilogue_kernel<<<1, threads, 2 * p.T * sizeof(float), s>>>(p);
-    err = cudaGetLastError();
-  }
+  if (p.fuse_epilogue)
+    err = launch_epilogue<2>(
+        DmmEpilogueArgs{p.filter_t, p.w_eps, p.u, p.u_new, p.u_shift, p.finite, p.T}, s);
   return static_cast<int>(err);
 }
 

@@ -1,12 +1,19 @@
 """Hand-written CUDA kernels of the MPPI hot paths — the diff-drive ticks,
-the two phases of the sample-sharded tick, the fleet tick and the race-car
-(kinematic bicycle) ticks — each beside its plain PyTorch version
-(counterpart of ``dnn_mppi_mpc_tpu/ops/pallas``).
+the two phases of the sample-sharded tick, the fleet tick, the race-car
+(kinematic bicycle) ticks and the generic tick and rollout over tile-step
+dynamics — each beside its plain PyTorch version (counterpart of
+``dnn_mppi_mpc_tpu/ops/pallas``).
 
 Importing this package builds nothing: the kernels are compiled at their
 first launch (``dnn_mppi_mpc_tpu_torch._build``)."""
 
 from .bicycle_tick import bicycle_mppi_tick, bicycle_mppi_tick_plain
+from .generic_tick import (
+    generic_mppi_tick,
+    generic_mppi_tick_plain,
+    generic_rollout_costs,
+    generic_rollout_costs_plain,
+)
 from .mppi_tick import diffdrive_mppi_tick, diffdrive_mppi_tick_plain
 from .mppi_tick_blocked import (
     diffdrive_mppi_tick_blocked,
@@ -27,6 +34,8 @@ KERNEL_WRAPPERS = (
     bicycle_mppi_tick,
     fleet_mppi_tick,
     weighted_noise_reduce,
+    generic_mppi_tick,
+    generic_rollout_costs,
 )
 PLAIN_VERSIONS = (
     diffdrive_rollout_costs_plain,
@@ -36,6 +45,8 @@ PLAIN_VERSIONS = (
     bicycle_mppi_tick_plain,
     fleet_mppi_tick_plain,
     weighted_noise_reduce_plain,
+    generic_mppi_tick_plain,
+    generic_rollout_costs_plain,
 )
 
 
@@ -62,6 +73,10 @@ __all__ = [
     "diffdrive_rollout_costs_plain",
     "fleet_mppi_tick",
     "fleet_mppi_tick_plain",
+    "generic_mppi_tick",
+    "generic_mppi_tick_plain",
+    "generic_rollout_costs",
+    "generic_rollout_costs_plain",
     "reset_counts",
     "weighted_noise_reduce",
     "weighted_noise_reduce_plain",

@@ -1,7 +1,7 @@
-"""What the three diff-drive kernel modules share on the Python side: the
-argument checks before a launch, and the plain PyTorch rollout body, softmax
-and weighted-noise sum that mirror the CUDA device code operation for
-operation."""
+"""What the kernel modules share on the Python side: the argument checks
+before a launch (the shared-memory budget among them), and the diff-drive
+plain PyTorch rollout body, softmax and weighted-noise sum that mirror the
+CUDA device code operation for operation."""
 
 from __future__ import annotations
 
@@ -14,6 +14,24 @@ import torch
 def f32(x: float) -> float:
     """``x`` rounded to float32, the value a kernel receives for it."""
     return float(np.float32(x))
+
+
+# The rollouts stage their per-tick constants in shared memory under the
+# static 48 KB limit (kMaxSmemBytes in csrc/mppi_reductions.cuh).
+MAX_SMEM_BYTES = 48 * 1024
+TWO_PI = f32(2.0 * np.pi)
+
+
+def check_staging(what: str, n_floats: int, staged: str) -> None:
+    """Raise unless the ``what`` kernels can stage ``n_floats`` float32
+    values (``staged`` names them) in shared memory: the window is never
+    cut short."""
+    need = 4 * n_floats
+    if need > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"the {what} kernels stage {staged} in {need} bytes of shared memory, over the "
+            f"{MAX_SMEM_BYTES}-byte limit: shorten waypoint_search_len or the horizon"
+        )
 
 
 def on_cuda(ref: torch.Tensor, **tensors: Optional[torch.Tensor]) -> bool:
@@ -166,8 +184,11 @@ def weighted_noise_plain(w: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
 
 
 __all__ = [
+    "MAX_SMEM_BYTES",
+    "TWO_PI",
     "check",
     "check_seed",
+    "check_staging",
     "f32",
     "on_cuda",
     "rollout_body_plain",

@@ -63,27 +63,41 @@ def hash_normal_pair(seed, block_id, shape, device=None):
 
 def hash_noise(seed, chol: torch.Tensor, K: int, T: int, k_blk: int, block_offset: int = 0,
                *, per_member: bool = False) -> torch.Tensor:
-    """ε (K, T, 2) colored by the lower Cholesky factor ``chol``: sample
-    k = b·k_blk + r·128 + lane at step t takes position (t, r, lane) of
-    ``hash_normal_pair(seed, block_offset + b, (T, k_blk/128, 128))`` (the
-    K-blocked tick's stream contract; the single-block tick is k_blk = K, a
-    shard of the sample-sharded tick starts at its global ``block_offset``).
+    """ε (K, T, nu) colored by the (nu, nu) lower Cholesky factor ``chol``:
+    normal pair p of sample k = b·k_blk + r·128 + lane at step t takes
+    position (p·T + t, r, lane) of ``hash_normal_pair(seed, block_offset + b,
+    (P·T, k_blk/128, 128))``, P = ⌈nu/2⌉, i.e. counter (p·T + t)·k_blk + local
+    of the (seed, block) stream (the K-blocked tick's stream contract; the
+    single-block tick is k_blk = K, a shard of the sample-sharded tick starts
+    at its global ``block_offset``). For nu = 2 this is the one pair per step
+    of the diff-drive ticks; for odd nu the second normal of the last pair is
+    dropped. Coloring runs left to right, ε_j = L[j,0]·z_0 + L[j,1]·z_1 + …,
+    as ``dmm_color`` in csrc/hash_normal.cuh.
 
     ``per_member``: ``seed`` is a (B,) vector of fleet seeds and the result
-    (B, K, T, 2), member b drawing from ``seed[b]`` (the fleet tick)."""
+    (B, K, T, nu), member b drawing from ``seed[b]`` (the fleet tick)."""
     if K % k_blk or k_blk % 128:
         raise ValueError(f"need K % k_blk == 0 and k_blk % 128 == 0 (K={K}, k_blk={k_blk})")
+    nu = chol.shape[-1]
+    P = (nu + 1) // 2
     seed = torch.as_tensor(seed, dtype=torch.int64, device=chol.device)
     seed = seed.reshape(-1, 1) if per_member else seed.reshape(())
     blocks = torch.arange(K // k_blk, dtype=torch.int64, device=chol.device) + block_offset
-    z0, z1 = hash_normal_pair(seed, blocks, (T, k_blk // 128, 128), device=chol.device)
-    # (..., NB, T, R, 128) → (..., K, T)
+    z0, z1 = hash_normal_pair(seed, blocks, (P * T, k_blk // 128, 128), device=chol.device)
+    # (..., NB, P·T, R, 128) → P tensors of (..., K, T) per member of the pair
     lead = z0.shape[:-4]
-    z0 = z0.reshape(lead + (-1, T, k_blk)).transpose(-1, -2).reshape(lead + (K, T))
-    z1 = z1.reshape(lead + (-1, T, k_blk)).transpose(-1, -2).reshape(lead + (K, T))
-    e0 = chol[0, 0] * z0
-    e1 = chol[1, 0] * z0 + chol[1, 1] * z1
-    return torch.stack([e0, e1], dim=-1)
+    z = []
+    for zz in (z0, z1):
+        zz = zz.reshape(lead + (-1, P, T, k_blk)).transpose(-1, -2)  # (..., NB, P, k_blk, T)
+        z.append([zz[..., p, :, :].reshape(lead + (K, T)) for p in range(P)])
+    z = [z[h][p] for p in range(P) for h in (0, 1)][:nu]  # z_0, z_1, ... in pair order
+    eps = []
+    for j in range(nu):
+        acc = chol[j, 0] * z[0]
+        for i in range(1, j + 1):
+            acc = acc + chol[j, i] * z[i]
+        eps.append(acc)
+    return torch.stack(eps, dim=-1)
 
 
 __all__ = ["splitmix32", "hash_bits", "hash_normal_pair", "hash_noise"]

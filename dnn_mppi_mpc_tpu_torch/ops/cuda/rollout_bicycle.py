@@ -18,32 +18,20 @@ bit in S; it is also the fused bicycle tick's plain rollout.
 from __future__ import annotations
 
 import ctypes
-import math
 from typing import Optional
 
 import torch
 
 from ..._build import OUTLINE_POINTS, DmmBicycleArgs, launch
 from ..costs import VEHICLE_OUTLINE_X, VEHICLE_OUTLINE_Y
-from .common import check, check_seed, f32, on_cuda
-
-# The rollout stages u, a (T, 2 each), the (W, 4) window and the (n, 3)
-# obstacles in shared memory, under the static 48 KB limit
-# (kMaxSmemBytes in csrc/mppi_reductions.cuh).
-MAX_SMEM_BYTES = 48 * 1024
-_TWO_PI = f32(2.0 * math.pi)
-
+from . import common
+from .common import TWO_PI, check, check_seed, f32, on_cuda
 
 def check_staging(T: int, W: int, n_obs: int) -> None:
-    """Raise unless the kernel can stage u, a, the window and the obstacles
-    in shared memory: the window is never cut short."""
-    need = 4 * (4 * T + 4 * W + 3 * n_obs)
-    if need > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"the bicycle kernels stage u, a, the (W={W}, 4) window and {n_obs} "
-            f"obstacles in {need} bytes of shared memory, over the {MAX_SMEM_BYTES}-byte "
-            "limit: shorten waypoint_search_len or the horizon"
-        )
+    """Raise unless the bicycle kernels can stage u, a (T, 2 each), the
+    (W, 4) window and the (n, 3) obstacles in shared memory."""
+    common.check_staging("bicycle", 4 * T + 4 * W + 3 * n_obs,
+                         f"u, a, the (W={W}, 4) window and {n_obs} obstacles")
 
 
 def vehicle_scalars(wheel_base=2.5, vehicle_length=4.0, vehicle_width=3.0, margin_rate=1.5,
@@ -69,7 +57,7 @@ def _bicycle_cost_plain(x, y, yaw, v, c, s, w, window, obstacles, veh, iso_xy):
     ref = window.index_select(0, j)  # (K, 4)
     # a tensor divisor: PyTorch turns division by a Python scalar into a
     # multiplication by its reciprocal on the card, which can round otherwise
-    yaw_w = yaw - _TWO_PI * torch.floor(yaw / torch.full_like(yaw, _TWO_PI))
+    yaw_w = yaw - TWO_PI * torch.floor(yaw / torch.full_like(yaw, TWO_PI))
     eyaw = yaw_w - ref[:, 2]
     ev = v - ref[:, 3]
     if iso_xy:

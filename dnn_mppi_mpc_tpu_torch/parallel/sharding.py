@@ -1,6 +1,10 @@
 """Sample-sharded MPPI and the sharded fleet over the ranks of a process
 group — counterpart of ``dnn_mppi_mpc_tpu/parallel/sharding.py``.
 
+* :func:`make_sharded_mppi_step` is the scan-path step with K split over n
+  ranks: each rank runs :func:`~..solvers.mppi.mppi_step` on its K/n
+  samples (the scan loop, or a ``rollout_fn`` such as the generic rollout
+  kernel with the shard's ``k_offset``), and ρ, η and Σw·ε are all-reduced.
 * :func:`make_sharded_fused_mppi_step` splits one controller's K samples
   over n ranks. Phase 1 is the K-blocked tick in ``s_only`` mode with ε
   drawn from (seed, global block); between the phases the only traffic is
@@ -10,8 +14,7 @@ group — counterpart of ``dnn_mppi_mpc_tpu/parallel/sharding.py``.
 * :func:`make_sharded_mppi_fleet` gives each rank B/n members of a fleet,
   with no collectives.
 
-The scan-path sharded step, the batched step and the NMPC fleet are still
-to be ported.
+The batched step and the NMPC fleet are still to be ported.
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ from ..ops.sampling import small_cholesky
 from ..ops.waypoints import nearest_waypoint, waypoint_window
 from ..solvers.mppi import (
     MPPIState,
+    StageCost,
+    TerminalCost,
     _check_kernel_collision,
     _check_tick_carry,
     _energy_rows,
@@ -40,9 +45,57 @@ from ..solvers.mppi import (
     _warm_filter,
     advance_key,
     make_fleet_fused_mppi_step,
+    mppi_step,
     resolve_device,
     tick_seed,
 )
+
+
+def make_sharded_mppi_step(
+    cfg: MPPIConfig,
+    dynamics_step: Callable,
+    stage_cost: StageCost,
+    terminal_cost: TerminalCost,
+    group: Optional[dist.ProcessGroup] = None,
+    rollout_fn: Optional[Callable] = None,
+    device="cuda",
+) -> Callable:
+    """The scan-path MPPI step with K sharded over the ranks of ``group``
+    (the default group when None; the JAX mesh axis).
+
+    ``step(params, state, x0, noise=None) -> (u0, state, aux)`` on one
+    controller's replicated params, state and x0, which lie on ``device``
+    (default the card, with an NCCL group; gloo on the CPU). Injected
+    ``noise`` is the global (K, T, dim_u) tensor, replicated: rank i takes
+    its rows [i·K/n, (i+1)·K/n), as JAX's ``P(axis)`` in-spec gives shard i.
+    Without noise rank i draws its slice from its own generator
+    (``step.generator``, seeded i; set its state to reseed), not from JAX's
+    stream. Every rank returns the same u0 and state; ``aux.costs`` /
+    ``aux.weights`` are this rank's samples. ``rollout_fn`` (e.g. ``make_cuda_generic_rollout``) replaces the scan
+    loop. ``num_samples % world_size`` raises."""
+    group = dist.group.WORLD if group is None else group
+    n, i = dist.get_world_size(group), dist.get_rank(group)
+    K = cfg.num_samples
+    if K % n != 0:
+        raise ValueError(f"num_samples={K} must be divisible by the group size {n}")
+    local = slice(i * (K // n), (i + 1) * (K // n))
+    device = resolve_device(device)
+    _warm_filter(cfg, device)
+    generator = torch.Generator(device=device).manual_seed(i)
+
+    def step(params: MPPIParams, state: MPPIState, x0: torch.Tensor,
+             noise: Optional[torch.Tensor] = None):
+        _on_device(device, u_prev=state.u_prev, x0=x0, ref_path=params.ref_path)
+        if noise is not None:
+            if noise.shape[0] != K:
+                raise ValueError(f"noise has {noise.shape[0]} samples, expected K={K}")
+            noise = noise[local]
+        return mppi_step(cfg, dynamics_step, stage_cost, terminal_cost, params, state, x0,
+                         noise, rollout_fn=rollout_fn, generator=generator, group=group)
+
+    step.samples = local
+    step.generator = generator
+    return step
 
 
 def make_sharded_fused_mppi_step(
@@ -190,4 +243,4 @@ def make_sharded_mppi_fleet(
     return step
 
 
-__all__ = ["make_sharded_fused_mppi_step", "make_sharded_mppi_fleet"]
+__all__ = ["make_sharded_fused_mppi_step", "make_sharded_mppi_fleet", "make_sharded_mppi_step"]

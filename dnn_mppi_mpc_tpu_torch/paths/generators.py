@@ -1,7 +1,8 @@
 """Reference-trajectory generators (counterpart of
 ``dnn_mppi_mpc_tpu/paths/generators.py``: the straight line and the race
 car's circle and lemniscate with a reference speed). Each returns a float32
-(P, d) tensor on ``device`` with columns (x, y, yaw[, v])."""
+(P, d) tensor on ``device`` (the card unless the caller passes
+``device="cpu"``) with columns (x, y, yaw[, v])."""
 
 from __future__ import annotations
 
@@ -9,6 +10,8 @@ import math
 
 import numpy as np
 import torch
+
+from ..config import resolve_device
 
 
 def _gradient(y: np.ndarray) -> np.ndarray:
@@ -19,11 +22,13 @@ def _gradient(y: np.ndarray) -> np.ndarray:
 
 def _table(columns, device) -> torch.Tensor:
     """Columns built in float64 numpy, rounded to float32 once."""
-    return torch.tensor(np.stack(columns, axis=1), dtype=torch.float32, device=device)
+    return torch.tensor(np.stack(columns, axis=1), dtype=torch.float32,
+                        device=resolve_device(device))
 
 
-def line(start, end, num_points: int = 100, device="cpu") -> torch.Tensor:
+def line(start, end, num_points: int = 100, device="cuda") -> torch.Tensor:
     """Straight-line course with constant heading: (P, 3) rows (x, y, yaw)."""
+    device = resolve_device(device)
     x = torch.linspace(float(start[0]), float(end[0]), num_points, device=device)
     y = torch.linspace(float(start[1]), float(end[1]), num_points, device=device)
     yaw = math.atan2(float(end[1]) - float(start[1]), float(end[0]) - float(start[0]))
@@ -31,7 +36,7 @@ def line(start, end, num_points: int = 100, device="cpu") -> torch.Tensor:
 
 
 def circle_with_speed(
-    radius: float, num_points: int = 100, speed: float = 5.0, device="cpu"
+    radius: float, num_points: int = 100, speed: float = 5.0, device="cuda"
 ) -> torch.Tensor:
     """Circular course with tangent yaw and constant reference speed:
     (P, 4) rows (x, y, yaw, v)."""
@@ -44,7 +49,7 @@ def circle_with_speed(
 
 
 def lemniscate_with_speed(
-    radius: float, num_points: int = 100, speed: float = 5.0, device="cpu"
+    radius: float, num_points: int = 100, speed: float = 5.0, device="cuda"
 ) -> torch.Tensor:
     """Lemniscate over t ∈ [0, 2π] with yaw from the numerical gradient and
     constant reference speed: (P, 4) rows (x, y, yaw, v)."""

@@ -206,7 +206,7 @@ def mppi_fleet(B: int = 16, num_samples: int = 1024, horizon: int = 50, device="
     cfg = MPPIConfig(num_samples=num_samples, horizon=horizon, dim_x=3, dim_u=2, dt=dt,
                      waypoint_search_len=20)
     goals = np.random.default_rng(0).uniform(-4, 4, (B, 2)).astype(np.float32)
-    paths = torch.stack([line([0.0, 0.0], g, num_points=80) for g in goals])
+    paths = torch.stack([line([0.0, 0.0], g, num_points=80, device="cpu") for g in goals])
     params = params_from_numpy(
         sigma=[[0.2, 0.0], [0.0, 0.1]],
         stage_weight=[8.0, 8.0, 2.0],

@@ -11,28 +11,35 @@ with the JAX package's routing rule:
 * the scan path (a Python loop over T on (K, ...) tensors) — the port's own
   oracle, fed injected ``noise`` or a ``torch.Generator``;
 * ``rollout_fn``: a split CUDA rollout kernel in place of the loop
-  (:func:`make_cuda_diffdrive_rollout`, or :func:`make_cuda_bicycle_rollout`
-  for the race car);
+  (:func:`make_cuda_diffdrive_rollout`, :func:`make_cuda_bicycle_rollout`
+  for the race car, or :func:`make_cuda_generic_rollout` for any tile-step
+  model);
 * ``tick_fn``: the whole sample-space computation in one fused kernel
   pipeline (:func:`make_cuda_diffdrive_tick`, the K-blocked
-  :func:`make_cuda_diffdrive_tick_blocked` at pod-scale K, or the race car's
-  :func:`make_cuda_bicycle_tick`).
+  :func:`make_cuda_diffdrive_tick_blocked` at pod-scale K, the race car's
+  :func:`make_cuda_bicycle_tick`, or the generic
+  :func:`make_cuda_generic_tick` over a tile step of ``models/tile.py``,
+  which ``MPPISolver(fused_tick=True, tile_dynamics=...)`` binds).
 
 A fleet of B independent controllers ticks in one kernel pipeline through
 :func:`make_fleet_fused_mppi_step` (batched :class:`MPPIState`, leading B);
-the sample-sharded tick and the sharded fleet are in ``parallel/sharding.py``.
+the sample-sharded ticks and the sharded fleet are in
+``parallel/sharding.py``: the scan-path one runs :func:`mppi_step` with a
+process ``group``, each rank rolling out its K/n samples.
 
-The tracking costs cover the diff-drive robot (circle or soft obstacles) and
-the race car (wrapped yaw, the vehicle polygon against circles).
+The tracking costs cover the diff-drive robot (circle or soft obstacles),
+the race car (wrapped yaw, the vehicle polygon against circles) and any
+tile-step model (the first n_track state dims, circle or soft obstacles).
 
 No step waits on the host: the waypoint window start, the tick seed and the
 carried key stay on the device. Entry points run on the card unless the
 caller passes ``device="cpu"``.
 
 Not ported yet (each raises ``ValueError``, never ignored):
-``waypoint_carry="rollout"``, the generic tick (``tile_dynamics``), the
-vmapped scan fleet, and the TPU-only tuning knobs (``lean``,
-``fold_anchor``, ``sincos`` modes, hardware Gaussians).
+``waypoint_carry="rollout"``, the vmapped scan fleet, lifted and
+time-varying tile steps on the card (they run on the CPU), and the TPU-only
+tuning knobs (``lean``, ``fold_anchor``, ``sincos`` modes, hardware
+Gaussians).
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import (
     CostAccumulation,
@@ -251,16 +259,29 @@ def mppi_step(
     rollout_fn: Optional[Callable] = None,
     tick_fn: Optional[Callable] = None,
     generator: Optional[torch.Generator] = None,
+    group: Optional[dist.ProcessGroup] = None,
 ) -> Tuple[torch.Tensor, MPPIState, MPPIAux]:
     """One MPPI control tick; returns (u0, next state, aux).
 
     ``noise`` (K, T, dim_u) injects ε; otherwise the scan and split paths
     draw it from ``generator`` and a ``tick_fn`` draws it from the hash
-    stream seeded by the carried key. ``rollout_fn(params, ctx, u, eps, x0)
-    -> S`` replaces the scan loop; ``tick_fn(params, ctx, u, x0, seed, eps)``
-    replaces the whole sample-space computation."""
+    stream seeded by the carried key. ``rollout_fn(params, ctx, u, eps, x0,
+    k_offset=...) -> S`` replaces the scan loop (``k_offset`` is the global
+    index of its first sample, the counterpart of the ``axis_name`` JAX
+    hands its rollout_fns); ``tick_fn(params, ctx, u, x0, seed, eps)``
+    replaces the whole sample-space computation.
+
+    ``group`` (a process group, the counterpart of JAX's ``axis_name``)
+    shards the samples over its n ranks: rank i rolls out samples
+    [i·K/n, (i+1)·K/n) — its (K/n, T, dim_u) slice of ``noise``, or ε from
+    its own ``generator`` — and ρ (all-reduce MIN), η (SUM) and Σw·ε (SUM)
+    are taken over all ranks; ``aux.costs`` / ``aux.weights`` are this
+    rank's. Nothing changes without a group."""
     _check_tick_carry(cfg)
     K, T = cfg.num_samples, cfg.horizon
+    n_ranks = 1 if group is None else dist.get_world_size(group)
+    local_K = K // n_ranks
+    k_offset = 0.0 if group is None else float(dist.get_rank(group) * local_K)
     u = state.u_prev
     x0 = x0.to(u.dtype)
     wp_idx, _ = nearest_waypoint(
@@ -278,6 +299,11 @@ def mppi_step(
     key = advance_key(state.key)
 
     if tick_fn is not None:
+        if group is not None:
+            raise ValueError(
+                "tick_fn (a fused tick kernel) is single-device only — use rollout_fn for "
+                "sample-sharded execution"
+            )
         out = tick_fn(params, ctx, u, x0, tick_seed(state.key), noise)
         if getattr(tick_fn, "fused_epilogue", False):
             S, w, _, (u_new, u_shift, finite) = out
@@ -290,28 +316,46 @@ def mppi_step(
     if noise is None:
         if generator is None:
             raise ValueError("the scan path needs injected noise or a torch.Generator")
-        eps = sample_noise(generator, params.sigma, K, T, dtype=u.dtype)
+        eps = sample_noise(generator, params.sigma, local_K, T, dtype=u.dtype)
     else:
         eps = noise.to(u.dtype)
+    if eps.shape[0] != local_K:
+        raise ValueError(f"noise has {eps.shape[0]} samples, expected {local_K} on this rank")
 
     if rollout_fn is not None:
-        S = rollout_fn(params, ctx, u, eps, x0)
+        S = rollout_fn(params, ctx, u, eps, x0, k_offset=k_offset)
     else:
-        S = _scan_rollout(cfg, dynamics_step, stage_cost, terminal_cost, params, ctx, u, eps, x0)
+        S = _scan_rollout(cfg, dynamics_step, stage_cost, terminal_cost, params, ctx, u, eps, x0,
+                          k_offset)
 
     inv_temp = f32(cfg.inv_temperature)
-    rho = S.min()
-    m = torch.exp(-inv_temp * (S - rho))
-    w = m / m.sum()
-    w_eps = (w[:, None, None] * eps).sum(0)  # over the unclamped ε
+    if group is None:
+        rho = S.min()
+        m = torch.exp(-inv_temp * (S - rho))
+        w = m / m.sum()
+        w_eps = (w[:, None, None] * eps).sum(0)  # over the unclamped ε
+    else:
+        rho = S.min().reshape(1)
+        dist.all_reduce(rho, op=dist.ReduceOp.MIN, group=group)
+        m = torch.exp(-inv_temp * (S - rho))
+        eta = m.sum().reshape(1)
+        dist.all_reduce(eta, op=dist.ReduceOp.SUM, group=group)
+        w = m / eta
+        w_eps = (w[:, None, None] * eps).sum(0)
+        dist.all_reduce(w_eps, op=dist.ReduceOp.SUM, group=group)
     return _mppi_tail(cfg, dynamics_step, params, x0, u, key, wp_idx, S, w, w_eps)
 
 
-def _scan_rollout(cfg, dynamics_step, stage_cost, terminal_cost, params, ctx, u, eps, x0):
-    """Per-sample costs S (K,) of the plain rollout loop over T."""
-    K, T = cfg.num_samples, cfg.horizon
+def _scan_rollout(cfg, dynamics_step, stage_cost, terminal_cost, params, ctx, u, eps, x0,
+                  k_offset=0.0):
+    """Per-sample costs S (K_local,) of the plain rollout loop over T, for
+    the samples of ``eps`` from global index ``k_offset`` on (the
+    exploration split is over the global K)."""
+    K, T = eps.shape[0], cfg.horizon
     k_idx = torch.arange(K, dtype=torch.float32, device=u.device)
-    exploit = (k_idx < f32((1.0 - cfg.exploration) * K))[:, None, None]
+    if k_offset:
+        k_idx = k_idx + f32(k_offset)
+    exploit = (k_idx < f32((1.0 - cfg.exploration) * cfg.num_samples))[:, None, None]
     v = torch.where(exploit, u[None] + eps, eps)
     v = torch.clamp(v, params.u_min, params.u_max)  # the clamp also feeds the energy
     a = matmul_f32(u, sigma_inverse(params.sigma))  # (T, nu): u_tᵀΣ⁻¹
@@ -467,7 +511,7 @@ def make_cuda_diffdrive_rollout(
     _check_tick_carry(cfg)
     _reject_repeats(cfg, "split rollout kernel")
 
-    def rollout(params, ctx, u, eps, x0):
+    def rollout(params, ctx, u, eps, x0, k_offset=0.0):
         if params.obstacle_velocities is not None:
             raise ValueError(
                 "the split rollout kernel does not implement moving obstacles "
@@ -479,7 +523,7 @@ def make_cuda_diffdrive_rollout(
             params.stage_weight, params.terminal_weight, params.u_min, params.u_max,
             cfg.dt, (1.0 - cfg.exploration) * cfg.num_samples,
             obstacles=params.obstacles, robot_radius=robot_radius,
-            safety_margin_rate=safety_margin_rate, T=cfg.horizon, W=W,
+            safety_margin_rate=safety_margin_rate, k_offset=k_offset, T=cfg.horizon, W=W,
             last_only=cfg.accumulation == CostAccumulation.LAST,
         )
 
@@ -635,9 +679,9 @@ def make_cuda_bicycle_rollout(
     vehicle = dict(wheel_base=wheel_base, vehicle_length=vehicle_length,
                    vehicle_width=vehicle_width, margin_rate=margin_rate)
 
-    def rollout(params, ctx, u, eps, x0):
+    def rollout(params, ctx, u, eps, x0, k_offset=0.0):
         args = _bicycle_kernel_args(cfg, params, ctx, u, x0, vehicle, "split bicycle rollout")
-        return bicycle_rollout_costs(eps.contiguous(), **args)
+        return bicycle_rollout_costs(eps.contiguous(), k_offset=k_offset, **args)
 
     return rollout
 
@@ -677,6 +721,163 @@ def make_cuda_bicycle_tick(
 
     tick.iso_xy = iso_xy
     return tick
+
+
+class _SigmaFactors:
+    """Σ's Cholesky factor and inverse, computed once per params object, as
+    :class:`_IsoCheck` checks once: at nu = 4 the unrolled float64 inverse
+    is dozens of 0-d ops, which would otherwise run every tick. A new Σ
+    comes with a new params object (``dataclasses.replace``), not by
+    changing ``params.sigma`` in place."""
+
+    def __init__(self):
+        self.last = None
+
+    def __call__(self, params: MPPIParams) -> Tuple[torch.Tensor, torch.Tensor]:
+        if params is not self.last:
+            self.chol, self.inverse = small_cholesky(params.sigma), sigma_inverse(params.sigma)
+            self.last = params
+        return self.chol, self.inverse
+
+
+def _generic_setup(cfg, step_tile, collision, what):
+    """The checks both generic binders make at construction; the state
+    width (the tile step's, or ``cfg.dim_x`` for a lifted step)."""
+    _check_tick_carry(cfg)
+    _reject_repeats(cfg, what)
+    if collision not in ("circle", "soft"):
+        raise ValueError(
+            f"the {what} takes collision 'circle' or 'soft', got {collision!r} "
+            "(the vehicle polygon is the race car's: make_cuda_bicycle_tick)"
+        )
+    if cfg.time_varying_dynamics != getattr(step_tile, "takes_t", False):
+        raise ValueError(
+            "time_varying_dynamics must match the tile step: a step built with "
+            "lift_dynamics_time_varying takes t, every other step does not"
+        )
+    nx = getattr(step_tile, "nx", None)
+    if nx is not None and nx != cfg.dim_x:
+        raise ValueError(f"the tile step has nx={nx}, the config dim_x={cfg.dim_x}")
+    return cfg.dim_x
+
+
+def _generic_kernel_args(cfg, params, ctx, u, energy_inverse, n_track_what):
+    """This tick's window, energy rows and tracked width for the generic
+    kernels (one n_track for both costs, as in JAX)."""
+    n_track = int(params.stage_weight.shape[0])
+    if params.terminal_weight.shape[0] != n_track:
+        raise ValueError(
+            f"the {n_track_what} tracks one n_track for both costs — stage_weight has "
+            f"{n_track} dims, terminal_weight {params.terminal_weight.shape[0]}; use the "
+            "scan path for asymmetric weights"
+        )
+    window, W = _tick_window(cfg, params, ctx, n_track)
+    a = (cfg.gamma * matmul_f32(u, energy_inverse)).contiguous()
+    return dict(a=a, window=window, W=W, n_track=n_track)
+
+
+def make_cuda_generic_tick(
+    cfg: MPPIConfig,
+    step_tile,
+    *,
+    wrap_yaw: bool = False,
+    collision: str = "circle",
+    robot_radius: float = 0.5,
+    soft_safety_distance: float = 2.0,
+    soft_weight: float = 100.0,
+    gaussian: str = "hash",
+    fuse_epilogue: bool = False,
+    safety_margin_rate: float = 1.5,
+):
+    """Bind the generic tick (ops/cuda/generic_tick.py) as ``tick_fn`` for
+    any tile-step dynamics (``models/tile.py``): ε from the hash stream
+    seeded by the carried key, or injected; the tracking costs of
+    :func:`make_tracking_costs` over the first n_track = len(stage_weight)
+    state dims (wrap-yaw on dim 2), circle or soft obstacles with drift,
+    SUM or LAST. With ``fuse_epilogue`` the kernel also applies the filter,
+    update, non-finite hold and shift.
+
+    On the card the step must be of a built-in family; a lifted or
+    time-varying step runs on CPU tensors only. Repeats, the per-rollout
+    waypoint carry, a collision other than circle or soft and stage/terminal
+    weights of different lengths raise ``ValueError``."""
+    from ..ops.cuda.generic_tick import generic_mppi_tick
+
+    _reject_unported(gaussian=gaussian)
+    nx = _generic_setup(cfg, step_tile, collision, "generic fused tick")
+    filter_np = np.ascontiguousarray(
+        filter_matrix(cfg.filter.value, cfg.horizon, cfg.filter_window, cfg.savgol_polyorder).T,
+        np.float32,
+    )
+    filter_t = {}  # device → Fᵀ tensor, made once per device
+    factors = _SigmaFactors()
+
+    def tick(params, ctx, u, x0, seed, noise):
+        chol, inverse = factors(params)
+        args = _generic_kernel_args(cfg, params, ctx, u, inverse, "generic fused tick")
+        ft = None
+        if fuse_epilogue:
+            if u.device not in filter_t:
+                filter_t[u.device] = torch.as_tensor(filter_np, device=u.device)
+            ft = filter_t[u.device]
+        return generic_mppi_tick(
+            seed, u, args["a"], chol, x0, args["window"], params.stage_weight,
+            params.terminal_weight, params.u_min, params.u_max, cfg.dt,
+            (1.0 - cfg.exploration) * cfg.num_samples, cfg.inv_temperature,
+            obstacles=params.obstacles, robot_radius=robot_radius,
+            safety_margin_rate=safety_margin_rate,
+            eps=None if noise is None else noise.contiguous(),
+            obstacle_velocities=params.obstacle_velocities,
+            soft_safety_distance=soft_safety_distance, soft_weight=soft_weight,
+            filter_t=ft, step_tile=step_tile, nx=nx, nu=cfg.dim_u, n_track=args["n_track"],
+            K=cfg.num_samples, T=cfg.horizon, W=args["W"], wrap_yaw=wrap_yaw,
+            last_only=cfg.accumulation == CostAccumulation.LAST, collision=collision,
+            fuse_epilogue=fuse_epilogue, step_takes_t=cfg.time_varying_dynamics,
+        )
+
+    tick.fused_epilogue = fuse_epilogue
+    return tick
+
+
+def make_cuda_generic_rollout(
+    cfg: MPPIConfig,
+    step_tile,
+    *,
+    wrap_yaw: bool = False,
+    collision: str = "circle",
+    robot_radius: float = 0.5,
+    soft_safety_distance: float = 2.0,
+    soft_weight: float = 100.0,
+    safety_margin_rate: float = 1.5,
+):
+    """Bind the generic rollout kernel as ``rollout_fn`` for any tile-step
+    dynamics — the sample-sharded counterpart of
+    :func:`make_cuda_generic_tick`, with its cost semantics. Under a process
+    group each rank rolls out its K/n samples with their global
+    ``k_offset`` (the exploration split stays over the global K); ρ, η and
+    Σw·ε are then all-reduced in :func:`mppi_step`."""
+    from ..ops.cuda.generic_tick import generic_rollout_costs
+
+    nx = _generic_setup(cfg, step_tile, collision, "generic rollout kernel")
+    factors = _SigmaFactors()
+
+    def rollout(params, ctx, u, eps, x0, k_offset=0.0):
+        _, inverse = factors(params)
+        args = _generic_kernel_args(cfg, params, ctx, u, inverse, "generic rollout kernel")
+        return generic_rollout_costs(
+            eps.contiguous(), u, args["a"], x0, args["window"], params.stage_weight,
+            params.terminal_weight, params.u_min, params.u_max, cfg.dt,
+            (1.0 - cfg.exploration) * cfg.num_samples, obstacles=params.obstacles,
+            robot_radius=robot_radius, safety_margin_rate=safety_margin_rate,
+            obstacle_velocities=params.obstacle_velocities,
+            soft_safety_distance=soft_safety_distance, soft_weight=soft_weight,
+            k_offset=k_offset, step_tile=step_tile, nx=nx, nu=cfg.dim_u,
+            n_track=args["n_track"], T=cfg.horizon, W=args["W"], wrap_yaw=wrap_yaw,
+            last_only=cfg.accumulation == CostAccumulation.LAST, collision=collision,
+            step_takes_t=cfg.time_varying_dynamics,
+        )
+
+    return rollout
 
 
 def _on_device(device, **tensors) -> None:
@@ -802,12 +1003,15 @@ def _pick_k_block(K: int, T: int) -> int:
 class MPPISolver:
     """Binds config + dynamics + costs and routes each tick to a kernel.
 
-    ``fused_tick=True`` binds the fused tick, or the K-blocked tick when
-    16·T·K bytes exceed 10 MiB (the JAX package's rule); ``use_kernel``
-    (default ``cfg.use_kernel``) binds the split rollout kernel otherwise.
-    Tensors on ``device`` decide where each tick runs: a CUDA device (the
-    default) launches the kernels, ``device="cpu"`` runs their plain
-    versions.
+    ``fused_tick=True`` binds the generic tick over ``tile_dynamics`` when
+    one is given (a tile step of ``models/tile.py``, with ``wrap_yaw`` and
+    ``collision`` for its costs), else the diff-drive fused tick, or the
+    K-blocked tick when 16·T·K bytes exceed 10 MiB (the JAX package's rule);
+    ``use_kernel`` (default ``cfg.use_kernel``) binds the split rollout
+    kernel otherwise. Tensors on ``device`` decide where each tick runs: a
+    CUDA device (the default) launches the kernels, ``device="cpu"`` runs
+    their plain versions. A lifted or time-varying tile step has no kernel:
+    on the card it raises here, on the CPU it runs.
     """
 
     def __init__(
@@ -824,6 +1028,7 @@ class MPPISolver:
         tick_fn: Optional[Callable] = None,
         gaussian: str = "hash",
         tile_dynamics: Optional[Callable] = None,
+        wrap_yaw: bool = False,
         collision: str = "circle",
         soft_safety_distance: float = 2.0,
         soft_weight: float = 100.0,
@@ -837,22 +1042,39 @@ class MPPISolver:
     ) -> None:
         _check_tick_carry(cfg)
         _reject_unported(sincos=sincos, gaussian=gaussian, fold_anchor=fold_anchor, lean=lean)
-        if tile_dynamics is not None:
-            raise ValueError("tile_dynamics (the generic fused tick) is not ported yet")
         use_kernel = cfg.use_kernel if use_kernel is None else use_kernel
         if cfg.time_varying_dynamics and (use_kernel or fused_tick) and (
-            tick_fn is None and rollout_fn is None
+            tile_dynamics is None and tick_fn is None and rollout_fn is None
         ):
             raise ValueError(
-                "time_varying_dynamics needs the scan path: the diff-drive "
-                "kernels compile their dynamics in"
+                "time_varying_dynamics needs the scan path, a generic rollout_fn, or the "
+                "generic tick (tile_dynamics built with lift_dynamics_time_varying): the "
+                "diff-drive kernels compile their dynamics in"
+            )
+        if tile_dynamics is not None and not fused_tick and tick_fn is None:
+            raise ValueError(
+                "tile_dynamics is only used by the fused tick kernel — pass fused_tick=True "
+                "(or bind make_cuda_generic_rollout as rollout_fn for the split and "
+                "sample-sharded paths)"
             )
         self.cfg = cfg
         self.dynamics_step = dynamics_step
         self.stage_cost = stage_cost
         self.terminal_cost = terminal_cost
         self.device = resolve_device(device)
+        generic = tick_fn is None and fused_tick and tile_dynamics is not None
+        if generic and self.device.type == "cuda":
+            from ..ops.cuda.generic_tick import kernel_model
+
+            kernel_model(tile_dynamics, cfg.time_varying_dynamics)  # raises without a kernel
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        if generic:
+            tick_fn = make_cuda_generic_tick(
+                cfg, tile_dynamics, wrap_yaw=wrap_yaw, collision=collision,
+                robot_radius=robot_radius, soft_safety_distance=soft_safety_distance,
+                soft_weight=soft_weight, gaussian=gaussian, fuse_epilogue=fuse_epilogue,
+                safety_margin_rate=safety_margin_rate,
+            )
         if tick_fn is None and fused_tick:
             if _EPS_BYTES_PER_SAMPLE_STEP * cfg.horizon * cfg.num_samples > _SINGLE_BLOCK_VMEM_BUDGET:
                 tick_fn = make_cuda_diffdrive_tick_blocked(
@@ -906,6 +1128,8 @@ __all__ = [
     "make_cuda_diffdrive_rollout",
     "make_cuda_diffdrive_tick",
     "make_cuda_diffdrive_tick_blocked",
+    "make_cuda_generic_rollout",
+    "make_cuda_generic_tick",
     "make_fleet_fused_mppi_step",
     "make_tracking_costs",
     "mppi_step",

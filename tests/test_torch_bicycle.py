@@ -183,7 +183,7 @@ def test_window_past_shared_memory_raises():
     """The kernels stage the whole window in shared memory: a window that
     does not fit raises instead of being cut short."""
     trollout.check_staging(20, 200, 2)  # the race car's suite shape fits
-    ref = circle_with_speed(8.0, 3200)
+    ref = circle_with_speed(8.0, 3200, device="cpu")
     inputs = {k: None if v is None else torch.as_tensor(v) for k, v in _inputs(5).items()}
     with pytest.raises(ValueError, match="shared memory"):
         trollout.bicycle_rollout_costs(inputs["eps"], inputs["u"], inputs["a"], inputs["x0"],
@@ -230,7 +230,7 @@ def test_vehicle_polygon_collision_matches_jax():
 def test_speed_paths_match_jax(name, args):
     want = np.asarray(getattr(jpaths, name)(*args))
     got = {"lemniscate_with_speed": lemniscate_with_speed,
-           "circle_with_speed": circle_with_speed}[name](*args)
+           "circle_with_speed": circle_with_speed}[name](*args, device="cpu")
     assert got.dtype == torch.float32 and got.shape == want.shape == (args[1], 4)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
 

@@ -29,7 +29,8 @@ from dnn_mppi_mpc_tpu.models.integrators import euler_step as j_euler
 from dnn_mppi_mpc_tpu.solvers import mppi as jmppi
 from dnn_mppi_mpc_tpu_torch import config as tcfg
 from dnn_mppi_mpc_tpu_torch import presets
-from dnn_mppi_mpc_tpu_torch.models import euler_step, unicycle
+from dnn_mppi_mpc_tpu_torch.models import euler_step, unicycle, unicycle_tile
+from dnn_mppi_mpc_tpu_torch.paths import circle_with_speed, lemniscate_with_speed, line
 from dnn_mppi_mpc_tpu_torch.solvers import mppi as tmppi
 
 DT = 0.05
@@ -223,7 +224,8 @@ GUARDS = {
     "fold_anchor": ({}, dict(fused_tick=True, fold_anchor=True), "fold_anchor"),
     "sincos_poly": ({}, dict(fused_tick=True, sincos="poly"), "sincos"),
     "gaussian_popcount": ({}, dict(fused_tick=True, gaussian="popcount"), "gaussian"),
-    "tile_dynamics": ({}, dict(fused_tick=True, tile_dynamics=object()), "tile_dynamics"),
+    "tile_dynamics_without_fused_tick": ({}, dict(tile_dynamics=unicycle_tile(0.02)),
+                                         "tile_dynamics"),
     "repeats_fused": (dict(num_rollout_repeats=2), dict(fused_tick=True), "num_rollout_repeats"),
     "repeats_split": (dict(num_rollout_repeats=2), dict(use_kernel=True), "num_rollout_repeats"),
     "time_varying_fused": (dict(time_varying_dynamics=True), dict(fused_tick=True),
@@ -302,6 +304,9 @@ DEVICE_DEFAULTS = {
         np.eye(2), np.ones(3), np.ones(3), -np.ones(2), np.ones(2), np.zeros((4, 3)), **device),
     "state_from_numpy": lambda device: tmppi.state_from_numpy(
         np.zeros((5, 2)), 0, [0, 0], **device),
+    "paths.line": lambda device: line([0.0, 0.0], [1.0, 1.0], num_points=5, **device),
+    "paths.circle_with_speed": lambda device: circle_with_speed(2.0, 8, **device),
+    "paths.lemniscate_with_speed": lambda device: lemniscate_with_speed(2.0, 8, **device),
 }
 
 

@@ -182,7 +182,7 @@ def test_apply_filter_matches(kind):
 
 def test_line_matches():
     want = np.asarray(j_line(jnp.array([0.0, 0.5]), jnp.array([6.0, -3.0]), num_points=120))
-    got = line((0.0, 0.5), (6.0, -3.0), num_points=120).numpy()
+    got = line((0.0, 0.5), (6.0, -3.0), num_points=120, device="cpu").numpy()
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
 
 
