@@ -1,4 +1,4 @@
-"""PyTorch/CUDA port of the diff-drive MPPI engine of ``dnn_mppi_mpc_tpu``.
+"""PyTorch/CUDA port of the MPPI and NMPC engines of ``dnn_mppi_mpc_tpu``.
 
 Same module paths as the JAX package. Plain tensor code is PyTorch; the hot
 path's kernels are hand-written CUDA for Hopper (``csrc/``), compiled at
@@ -11,6 +11,7 @@ from .config import (
     MPPIConfig,
     MPPIParams,
     SmoothingFilter,
+    SQPConfig,
     Temperature,
     params_from_numpy,
 )
@@ -20,6 +21,7 @@ __all__ = [
     "MPPIConfig",
     "MPPIParams",
     "SmoothingFilter",
+    "SQPConfig",
     "Temperature",
     "params_from_numpy",
 ]

@@ -127,6 +127,20 @@ class DmmGenericArgs(ctypes.Structure):
     ] + [("c", ctypes.c_float * GENERIC_CONSTANTS)]
 
 
+class DmmQPArgs(ctypes.Structure):
+    """ctypes mirror of ``struct DmmQPArgs`` in csrc/riccati_qp.cu."""
+
+    _fields_ = [
+        (name, ctypes.c_void_p)
+        for name in (
+            "mus", "misc", "A", "B", "c", "Q", "qx", "R", "ru", "lbx", "ubx", "lbu", "ubu",
+            "Jh", "h0", "S", "dx0", "dX", "dU", "kkt", "K", "k", "ddX", "ddU", "cres",
+        )
+    ] + [
+        (name, ctypes.c_int) for name in ("Bn", "N", "nx", "nu", "n_h", "num_iters", "has_S")
+    ]
+
+
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
     cand = Path(home) / "bin" / "nvcc"
@@ -193,15 +207,18 @@ def load_kernels() -> ctypes.CDLL:
     lib.dmm_fleet_args_size.restype = ctypes.c_int
     lib.dmm_generic_args_size.argtypes = []
     lib.dmm_generic_args_size.restype = ctypes.c_int
+    lib.dmm_qp_args_size.argtypes = []
+    lib.dmm_qp_args_size.restype = ctypes.c_int
     for fn in (lib.dmm_rollout_costs, lib.dmm_mppi_tick, lib.dmm_weighted_noise_reduce,
                lib.dmm_fleet_mppi_tick, lib.dmm_bicycle_rollout_costs, lib.dmm_bicycle_tick,
-               lib.dmm_generic_rollout_costs, lib.dmm_generic_tick):
+               lib.dmm_generic_rollout_costs, lib.dmm_generic_tick, lib.dmm_barrier_qp):
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     for struct, size_fn in ((DmmArgs, lib.dmm_args_size),
                             (DmmFleetArgs, lib.dmm_fleet_args_size),
                             (DmmBicycleArgs, lib.dmm_bicycle_args_size),
-                            (DmmGenericArgs, lib.dmm_generic_args_size)):
+                            (DmmGenericArgs, lib.dmm_generic_args_size),
+                            (DmmQPArgs, lib.dmm_qp_args_size)):
         if size_fn() != ctypes.sizeof(struct):
             raise RuntimeError(
                 f"{struct.__name__} layout mismatch: C {size_fn()} bytes, "
@@ -227,6 +244,7 @@ __all__ = [
     "DmmBicycleArgs",
     "DmmFleetArgs",
     "DmmGenericArgs",
+    "DmmQPArgs",
     "GENERIC_CONSTANTS",
     "build",
     "launch",

@@ -1,4 +1,4 @@
-"""Typed configuration for the PyTorch/CUDA MPPI engine.
+"""Typed configuration for the PyTorch/CUDA MPPI and NMPC engines.
 
 Counterpart of ``dnn_mppi_mpc_tpu/config.py``. The split is the same:
 
@@ -10,7 +10,7 @@ Counterpart of ``dnn_mppi_mpc_tpu/config.py``. The split is the same:
 The enums and :class:`MPPIConfig` carry the JAX package's fields, with
 ``use_pallas`` renamed ``use_kernel``; the fields of the per-rollout
 waypoint carry (``waypoint_persist``, ``carry_window_len``) come with that
-mode.
+mode. :class:`SQPConfig` is the NMPC engine's static configuration.
 """
 
 from __future__ import annotations
@@ -122,15 +122,66 @@ class MPPIParams:
         )
 
 
+QP_BACKENDS = ("torch", "kernel")
+
+
+@dataclasses.dataclass(frozen=True)
+class SQPConfig:
+    """Static configuration of the SQP-RTI NMPC engine (fields and defaults
+    as in the JAX package).
+
+    ``qp_backend`` is ``"torch"`` (``solvers/qp.barrier_qp_solve``, the
+    counterpart of the JAX ``"xla"``) or ``"kernel"`` (the fused
+    barrier-Riccati CUDA kernel, the counterpart of ``"pallas"``; on CPU
+    tensors its plain version). The JAX names raise ``ValueError``. The JAX
+    ``parallel_riccati`` (the associative-scan Riccati) is not ported: on the
+    card the kernel takes its role of cutting the QP's sequential depth.
+    """
+
+    N: int  # shooting intervals
+    dim_x: int
+    dim_u: int
+    dt: float
+    num_rk4_steps: int = 3  # ERK substeps per interval
+    integrator: str = "erk"  # 'erk' (RK4 substeps) or 'irk' (Gauss-Legendre + Newton)
+    irk_newton_iters: int = 3  # Newton steps on the IRK stage equations
+    sqp_iters: int = 1  # 1 == SQP-RTI; >1 == converged SQP
+    qp_iters: int = 12  # interior-point iterations per QP solve
+    n_h_constraints: int = 0  # nonlinear inequality constraints (obstacles)
+    soft_h: bool = False  # soften h-constraints with slack penalties
+    slack_weight_l2: float = 1.0e4  # L2 slack penalty (the barrier's h stiffness)
+    slack_weight_l1: float = 1.0e3  # L1 slack penalty (the barrier's h slope)
+    ip_mu0: float = 1.0e-1  # initial interior-point barrier weight
+    ip_kappa: float = 0.25  # barrier decrease factor per iteration
+    ip_delta: float = 1.0e-3  # relaxed-barrier threshold δ (the QP's accuracy floor)
+    line_search: str = "merit"  # 'merit' (ℓ1 merit over six step sizes) or 'full'
+    h_terminal: bool = True  # h-constraints at the terminal node too
+    qp_backend: str = "torch"  # 'torch' or 'kernel'
+
+    def __post_init__(self):
+        if self.qp_backend in ("xla", "pallas"):
+            port = "torch" if self.qp_backend == "xla" else "kernel"
+            raise ValueError(
+                f"qp_backend={self.qp_backend!r} is the JAX package's name: this port's "
+                f"backends are 'torch' and 'kernel' (use {port!r})"
+            )
+        if self.qp_backend not in QP_BACKENDS:
+            raise ValueError(f"qp_backend must be one of {QP_BACKENDS}, got {self.qp_backend!r}")
+
+
 def resolve_device(device) -> torch.device:
     """``device`` as a ``torch.device``; a CUDA device on a machine without
-    one raises here, with the way out, instead of deep in a kernel call."""
+    one raises here, with the way out, instead of deep in a kernel call.
+    ``"cuda"`` without an index becomes the current card (``cuda:0``), the
+    device its tensors report, so a step's device checks accept them."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"this runs on the card by default (device={str(device)!r}) and no CUDA "
             "device is available: pass device='cpu' to run the plain versions on the CPU"
         )
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     return device
 
 
@@ -180,6 +231,8 @@ __all__ = [
     "SmoothingFilter",
     "MPPIConfig",
     "MPPIParams",
+    "QP_BACKENDS",
+    "SQPConfig",
     "params_from_numpy",
     "resolve_device",
 ]

@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels of the MPPI hot paths — the diff-drive ticks,
 the two phases of the sample-sharded tick, the fleet tick, the race-car
-(kinematic bicycle) ticks and the generic tick and rollout over tile-step
-dynamics — each beside its plain PyTorch version (counterpart of
+(kinematic bicycle) ticks, the generic tick and rollout over tile-step
+dynamics and the NMPC engine's fused barrier-Riccati QP (one problem, or a
+fleet in one launch) — each beside its plain PyTorch version (counterpart of
 ``dnn_mppi_mpc_tpu/ops/pallas``).
 
 Importing this package builds nothing: the kernels are compiled at their
@@ -23,6 +24,12 @@ from .mppi_tick_blocked import (
     weighted_noise_reduce,
     weighted_noise_reduce_plain,
 )
+from .riccati_qp import (
+    batched_fused_barrier_qp_solve,
+    batched_fused_barrier_qp_solve_plain,
+    fused_barrier_qp_solve,
+    fused_barrier_qp_solve_plain,
+)
 from .rollout import diffdrive_rollout_costs, diffdrive_rollout_costs_plain
 from .rollout_bicycle import bicycle_rollout_costs, bicycle_rollout_costs_plain
 
@@ -36,6 +43,8 @@ KERNEL_WRAPPERS = (
     weighted_noise_reduce,
     generic_mppi_tick,
     generic_rollout_costs,
+    fused_barrier_qp_solve,
+    batched_fused_barrier_qp_solve,
 )
 PLAIN_VERSIONS = (
     diffdrive_rollout_costs_plain,
@@ -47,6 +56,8 @@ PLAIN_VERSIONS = (
     weighted_noise_reduce_plain,
     generic_mppi_tick_plain,
     generic_rollout_costs_plain,
+    fused_barrier_qp_solve_plain,
+    batched_fused_barrier_qp_solve_plain,
 )
 
 
@@ -61,6 +72,8 @@ def reset_counts() -> None:
 __all__ = [
     "KERNEL_WRAPPERS",
     "PLAIN_VERSIONS",
+    "batched_fused_barrier_qp_solve",
+    "batched_fused_barrier_qp_solve_plain",
     "bicycle_mppi_tick",
     "bicycle_mppi_tick_plain",
     "bicycle_rollout_costs",
@@ -73,6 +86,8 @@ __all__ = [
     "diffdrive_rollout_costs_plain",
     "fleet_mppi_tick",
     "fleet_mppi_tick_plain",
+    "fused_barrier_qp_solve",
+    "fused_barrier_qp_solve_plain",
     "generic_mppi_tick",
     "generic_mppi_tick_plain",
     "generic_rollout_costs",

@@ -1,4 +1,4 @@
-"""Control-noise sampling and tiny SPD factorizations.
+"""Control-noise sampling, tiny SPD factorizations and the tiny pivoted LU solve.
 
 Counterpart of ``dnn_mppi_mpc_tpu/ops/sampling.py``. The scan path draws its
 noise from a caller-owned ``torch.Generator``; it gives other numbers than
@@ -54,6 +54,42 @@ def sigma_inverse(sigma: torch.Tensor) -> torch.Tensor:
     return (Linv.T @ Linv).to(sigma.dtype)
 
 
+def small_lu_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve a·x = b for tiny ``a`` (..., n, n) by unrolled partial-pivot LU;
+    ``b`` is (..., n) or (..., n, m), with the same leading dims.
+
+    Partial pivoting, not Cholesky: the Riccati sweep's Luu = R + BᵀPB is
+    only nominally SPD. In f32 the cost-to-go update cancels once the
+    barrier's quadratic-extension stiffness (~1e6) enters the Hessians, and
+    Luu can come out indefinite; LU with row pivoting then returns the same
+    bounded step as a dense solve, which fraction-to-boundary damping
+    corrects, where a clamped Cholesky pivot would blow the gain up to
+    ~1e13. No data-dependent branch and no in-place op, so it runs under
+    ``torch.func`` transforms and autograd and never waits for the card."""
+    n = a.shape[-1]
+    vec = b.dim() == a.dim() - 1
+    B = b.unsqueeze(-1) if vec else b
+    rows = [torch.cat([a[..., i, :], B[..., i, :]], dim=-1) for i in range(n)]
+    for i in range(n):
+        # bubble the max-|column i| row into position i
+        for j in range(i + 1, n):
+            swap = (torch.abs(rows[j][..., i]) > torch.abs(rows[i][..., i])).unsqueeze(-1)
+            rows[i], rows[j] = (torch.where(swap, rows[j], rows[i]),
+                                torch.where(swap, rows[i], rows[j]))
+        piv = rows[i]
+        inv_p = torch.reciprocal(piv[..., i])
+        for j in range(i + 1, n):
+            rows[j] = rows[j] - (rows[j][..., i] * inv_p).unsqueeze(-1) * piv
+    xs: list = [None] * n
+    for i in reversed(range(n)):  # back substitution
+        s = rows[i][..., n:]
+        for k in range(i + 1, n):
+            s = s - rows[i][..., k:k + 1] * xs[k]
+        xs[i] = s / rows[i][..., i:i + 1]
+    X = torch.stack(xs, dim=-2)
+    return X[..., 0] if vec else X
+
+
 def sample_noise(
     generator: torch.Generator,
     sigma: torch.Tensor,
@@ -73,4 +109,4 @@ def sample_noise(
     return (z.unsqueeze(-2) * chol).sum(-1)
 
 
-__all__ = ["small_cholesky", "sigma_inverse", "sample_noise"]
+__all__ = ["small_cholesky", "small_lu_solve", "sigma_inverse", "sample_noise"]

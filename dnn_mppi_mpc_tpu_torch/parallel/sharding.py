@@ -13,8 +13,12 @@ group — counterpart of ``dnn_mppi_mpc_tpu/parallel/sharding.py``.
   (K, T, 2) noise tensor never exists.
 * :func:`make_sharded_mppi_fleet` gives each rank B/n members of a fleet,
   with no collectives.
+* :func:`make_sharded_nmpc_fleet` does the same for a fleet of NMPC
+  problems: each rank solves its members with ``NMPCSolver.batched_solve``
+  (with the kernel QP backend, one launch of the batched QP kernel per SQP
+  iteration for the rank's members).
 
-The batched step and the NMPC fleet are still to be ported.
+The batched scan-path step is still to be ported.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from ..config import MPPIConfig, MPPIParams
 from ..ops.cuda.common import f32
 from ..ops.sampling import small_cholesky
 from ..ops.waypoints import nearest_waypoint, waypoint_window
+from ..solvers.sqp import PARAM_NDIM, NMPCSolver, NMPCState, OCPParams
 from ..solvers.mppi import (
     MPPIState,
     StageCost,
@@ -220,13 +225,8 @@ def make_sharded_mppi_fleet(
             "fused=False (the vmapped scan-path fleet) is not ported yet: the "
             "port's mppi_step has no batch form; use fused=True"
         )
-    n, i = dist.get_world_size(group), dist.get_rank(group)
+    members = _fleet_members(group)
     inner = make_fleet_fused_mppi_step(cfg, dynamics_step, **fleet_kwargs)
-
-    def members(B: int) -> slice:
-        if B % n != 0:
-            raise ValueError(f"fleet size {B} must be divisible by the group size {n}")
-        return slice(i * (B // n), (i + 1) * (B // n))
 
     def step(params: MPPIParams, states: MPPIState, x0s: torch.Tensor):
         mine = members(x0s.shape[0])
@@ -243,4 +243,49 @@ def make_sharded_mppi_fleet(
     return step
 
 
-__all__ = ["make_sharded_fused_mppi_step", "make_sharded_mppi_fleet", "make_sharded_mppi_step"]
+def _fleet_members(group: Optional[dist.ProcessGroup]) -> Callable[[int], slice]:
+    """``members(B)``: rank i's slice [i·B/n, (i+1)·B/n) of a B-member fleet
+    (B % n raises)."""
+    n, i = dist.get_world_size(group), dist.get_rank(group)
+
+    def members(B: int) -> slice:
+        if B % n != 0:
+            raise ValueError(f"fleet size {B} must be divisible by the group size {n}")
+        return slice(i * (B // n), (i + 1) * (B // n))
+
+    return members
+
+
+def make_sharded_nmpc_fleet(solver: NMPCSolver, group: Optional[dist.ProcessGroup] = None,
+                            device="cuda") -> Callable:
+    """A fleet of independent NMPC problems split over the ranks of
+    ``group`` (the default group when None): rank i solves members
+    [i·B/n, (i+1)·B/n) with ``solver.batched_solve()``, with no collectives.
+
+    ``step(params, states, x0s)`` takes the whole fleet, on ``device``
+    (default the card): the params' leaves with a leading member axis are
+    sliced with the fleet, shared ones are kept whole. It returns this
+    rank's members' ``(u0s, states, auxs)``; ``step.members(B)`` is their
+    slice. B % n raises."""
+    device = resolve_device(device)
+    members = _fleet_members(group)
+    fleet = solver.batched_solve()
+
+    def step(params: OCPParams, states: NMPCState, x0s: torch.Tensor):
+        _on_device(device, X=states.X, x0s=x0s, yref=params.yref)
+        mine = members(x0s.shape[0])
+        local = OCPParams(**{
+            f.name: (None if getattr(params, f.name) is None
+                     else getattr(params, f.name)[mine]
+                     if getattr(params, f.name).dim() == PARAM_NDIM[f.name] + 1
+                     else getattr(params, f.name))
+            for f in dataclasses.fields(params)
+        })
+        return fleet(local, NMPCState(X=states.X[mine], U=states.U[mine]), x0s[mine])
+
+    step.members = members
+    return step
+
+
+__all__ = ["make_sharded_fused_mppi_step", "make_sharded_mppi_fleet", "make_sharded_mppi_step",
+           "make_sharded_nmpc_fleet"]

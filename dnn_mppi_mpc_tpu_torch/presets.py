@@ -13,6 +13,13 @@ collision) as one :class:`MPPISolver` and its params.
 (``utils/benchsuite.py:223-258``): B diff-drive controllers, each tracking
 its own line, through the fleet tick.
 
+:func:`diff_drive_nmpc`, :func:`racecar_nmpc` and :func:`four_wheel_nmpc`
+are the JAX package's NMPC presets (SQP-RTI on the unicycle with obstacle
+h-rows, the kinematic or dynamic bicycle, the four-wheel torque model with
+IRK). :func:`nmpc_fleet` is the problem of the JAX suite's ``nmpc_fleet``
+row (``utils/benchsuite.py:310-346``): 128 diff-drive NMPC problems, each
+with its own goal and obstacle, solved as one fleet.
+
 Each runs on the card unless the caller passes ``device="cpu"``.
 """
 
@@ -28,10 +35,18 @@ from .config import (
     MPPIConfig,
     MPPIParams,
     SmoothingFilter,
+    SQPConfig,
     Temperature,
     params_from_numpy,
 )
-from .models.dynamics import BicycleParams, kinematic_bicycle, unicycle
+from .models.dynamics import (
+    BicycleParams,
+    DynamicBicycleParams,
+    dynamic_bicycle,
+    four_wheel_torque,
+    kinematic_bicycle,
+    unicycle,
+)
 from .models.integrators import euler_step
 from .paths.generators import line
 from .solvers.mppi import (
@@ -43,6 +58,7 @@ from .solvers.mppi import (
     make_tracking_costs,
     resolve_device,
 )
+from .solvers.sqp import NMPCSolver, NMPCState, OCPParams, circle_obstacle_h, ocp_params_from_numpy
 
 
 def flagship(num_samples: int = 10240, horizon: int = 50, device="cuda"):
@@ -225,4 +241,116 @@ def mppi_fleet(B: int = 16, num_samples: int = 1024, horizon: int = 50, device="
     return step, params, states, plant
 
 
-__all__ = ["flagship", "mppi_fleet", "racecar_mppi"]
+def _ls_params(Q, R, Qe, goal, N, lbx, ubx, lbu, ubu, p=None, device="cuda") -> OCPParams:
+    """LINEAR_LS params: yref = (goal, 0) at every stage, yref_e = goal."""
+    goal = np.asarray(goal, np.float32)
+    nu = np.asarray(R).shape[0]
+    yref = np.concatenate([goal, np.zeros(nu, np.float32)])[None, :].repeat(N, axis=0)
+    return ocp_params_from_numpy(Q=Q, R=R, Qe=Qe, yref=yref, yref_e=goal, lbx=lbx, ubx=ubx,
+                                 lbu=lbu, ubu=ubu, p=p, device=device)
+
+
+def diff_drive_nmpc(goal, N: int = 30, dt: float = 0.1, obstacles=None, sqp_iters: int = 2,
+                    device="cuda", **overrides) -> tuple[NMPCSolver, OCPParams]:
+    """Diff-drive NMPC with circular obstacle h-constraints: LINEAR_LS with
+    Q = Qe = diag(10, 10, 0.1), R = diag(0.5, 0.05), ERK(4, 3), x ∈ ±10,
+    u ∈ ±1, and one (x−ox)² + (y−oy)² ≥ r² row per row (ox, oy,
+    radius + safe distance) of ``obstacles``. ``overrides`` are
+    :class:`SQPConfig` fields (``qp_backend="kernel"`` for the fused QP
+    kernel)."""
+    device = resolve_device(device)
+    n_obs = 0 if obstacles is None else np.asarray(obstacles).shape[0]
+    cfg = SQPConfig(N=N, dim_x=3, dim_u=2, dt=dt, sqp_iters=sqp_iters,
+                    qp_iters=overrides.pop("qp_iters", 12), n_h_constraints=n_obs, **overrides)
+    solver = NMPCSolver(cfg, unicycle, h_fn=None if obstacles is None else circle_obstacle_h,
+                        device=device)
+    params = _ls_params(Q=np.diag([10.0, 10.0, 0.1]), R=np.diag([0.5, 0.05]),
+                        Qe=np.diag([10.0, 10.0, 0.1]), goal=goal, N=N, lbx=np.full(3, -10.0),
+                        ubx=np.full(3, 10.0), lbu=[-1.0, -1.0], ubu=[1.0, 1.0], p=obstacles,
+                        device=device)
+    return solver, params
+
+
+def racecar_nmpc(goal, N: int = 50, dt: float = 0.05, wheel_base: float = 0.325,
+                 dynamic_model: bool = False, sqp_iters: int = 2, device="cuda",
+                 **overrides) -> tuple[NMPCSolver, OCPParams]:
+    """Race-car NMPC: the kinematic bicycle (L = 0.325, N = 50, controls
+    (δ, a) in ±(0.4, 2)) or the dynamic single-track model with tire slip
+    (controls (a, δ) in ±(2, 0.4), accel first)."""
+    device = resolve_device(device)
+    cfg = SQPConfig(N=N, dim_x=4, dim_u=2, dt=dt, sqp_iters=sqp_iters,
+                    qp_iters=overrides.pop("qp_iters", 12), **overrides)
+    if dynamic_model:
+        dbp = DynamicBicycleParams.default()
+
+        def dyn(x, u):
+            return dynamic_bicycle(x, u, dbp)
+
+        lbu, ubu = [-2.0, -0.4], [2.0, 0.4]
+    else:
+        bp = BicycleParams(wheel_base=wheel_base)
+
+        def dyn(x, u):
+            return kinematic_bicycle(x, u, bp)
+
+        lbu, ubu = [-0.4, -2.0], [0.4, 2.0]
+    solver = NMPCSolver(cfg, dyn, device=device)
+    params = _ls_params(Q=np.diag([20.0, 20.0, 0.5, 1.0]), R=np.diag([0.5, 0.5]),
+                        Qe=np.diag([20.0, 20.0, 0.5, 1.0]), goal=goal, N=N,
+                        lbx=[-10.0, -10.0, -10.0, -3.0], ubx=[10.0, 10.0, 10.0, 3.0],
+                        lbu=lbu, ubu=ubu, device=device)
+    return solver, params
+
+
+def four_wheel_nmpc(goal, N: int = 20, dt: float = 0.1, sqp_iters: int = 2, device="cuda",
+                    **overrides) -> tuple[NMPCSolver, OCPParams]:
+    """Four-wheel torque-input NMPC, with the implicit Gauss-Legendre
+    integrator by default (``integrator="erk"`` for the explicit one):
+    Q = Qe = diag(20, 20, 1, 1, 1), R = 0.1·I, x ∈ ±20, torques ∈ ±5."""
+    device = resolve_device(device)
+    cfg = SQPConfig(N=N, dim_x=5, dim_u=4, dt=dt, sqp_iters=sqp_iters,
+                    integrator=overrides.pop("integrator", "irk"),
+                    qp_iters=overrides.pop("qp_iters", 12), **overrides)
+    solver = NMPCSolver(cfg, four_wheel_torque, device=device)
+    params = _ls_params(Q=np.diag([20.0, 20.0, 1.0, 1.0, 1.0]), R=np.eye(4) * 0.1,
+                        Qe=np.diag([20.0, 20.0, 1.0, 1.0, 1.0]), goal=goal, N=N,
+                        lbx=np.full(5, -20.0), ubx=np.full(5, 20.0), lbu=np.full(4, -5.0),
+                        ubu=np.full(4, 5.0), device=device)
+    return solver, params
+
+
+def nmpc_fleet(B: int = 128, N: int = 30, qp_backend: str = "kernel", device="cuda"):
+    """(solver, params, states, x0s) of the JAX suite's ``nmpc_fleet`` row:
+    :func:`diff_drive_nmpc` with its defaults (``sqp_iters=2``) at horizon N;
+    member b drives to goal b = (3 cos θ_b, 3 sin θ_b, θ_b) and avoids one
+    obstacle of radius 0.25 at 0.55 of the way, with θ, then x0s ∈ ±0.3,
+    drawn from ``np.random.default_rng(0)``. Every params leaf carries the
+    leading member axis, as the suite's ``vmap`` gives them; step the fleet
+    with ``solver.batched_solve()``."""
+    device = resolve_device(device)
+    solver, base = diff_drive_nmpc(np.zeros(3), N=N, obstacles=[[1.0, 0.0, 0.3]],
+                                   qp_backend=qp_backend, device=device)
+    rng = np.random.default_rng(0)
+    ang = rng.uniform(0, 2 * np.pi, B)
+    goals = np.stack([3.0 * np.cos(ang), 3.0 * np.sin(ang), ang], axis=1).astype(np.float32)
+    x0s = rng.uniform(-0.3, 0.3, (B, 3)).astype(np.float32)
+    obs = np.concatenate([0.55 * goals[:, :2], np.full((B, 1), 0.25, np.float32)],
+                         axis=1)[:, None, :]
+    yref = np.concatenate([goals, np.zeros((B, 2), np.float32)], axis=1)[:, None, :]
+
+    def member_axis(t):
+        return t.expand(B, *t.shape).contiguous()
+
+    def on_device(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    params = OCPParams(Q=member_axis(base.Q), R=member_axis(base.R), Qe=member_axis(base.Qe),
+                       yref=on_device(yref.repeat(N, axis=1)), yref_e=on_device(goals),
+                       lbx=member_axis(base.lbx), ubx=member_axis(base.ubx),
+                       lbu=member_axis(base.lbu), ubu=member_axis(base.ubu), p=on_device(obs))
+    x0s = torch.from_numpy(x0s).to(device)
+    return solver, params, NMPCState.init(solver.cfg, x0s, device=device), x0s
+
+
+__all__ = ["diff_drive_nmpc", "flagship", "four_wheel_nmpc", "mppi_fleet", "nmpc_fleet",
+           "racecar_mppi", "racecar_nmpc"]

@@ -32,6 +32,7 @@ from dnn_mppi_mpc_tpu_torch import presets
 from dnn_mppi_mpc_tpu_torch.models import euler_step, unicycle, unicycle_tile
 from dnn_mppi_mpc_tpu_torch.paths import circle_with_speed, lemniscate_with_speed, line
 from dnn_mppi_mpc_tpu_torch.solvers import mppi as tmppi
+from dnn_mppi_mpc_tpu_torch.solvers import sqp as tsqp
 
 DT = 0.05
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -293,6 +294,27 @@ def _flag_solver(**kw):
     return tmppi.MPPISolver(cfg, step, stage, terminal, fused_tick=True, **kw)
 
 
+def _nmpc_cfg():
+    return tcfg.SQPConfig(N=5, dim_x=3, dim_u=2, dt=0.1)
+
+
+def _sharded_nmpc(device):
+    """make_sharded_nmpc_fleet: resolves its device before it asks the
+    process group anything; with a device, on a one-process gloo group."""
+    import torch.distributed as dist
+
+    from dnn_mppi_mpc_tpu_torch import parallel
+
+    solver = tsqp.NMPCSolver(_nmpc_cfg(), unicycle, device="cpu")
+    if not device:
+        return parallel.make_sharded_nmpc_fleet(solver)
+    parallel.initialize_distributed(device="cpu")
+    try:
+        return parallel.make_sharded_nmpc_fleet(solver, **device)
+    finally:
+        dist.destroy_process_group()
+
+
 DEVICE_DEFAULTS = {
     "MPPISolver": lambda device: _flag_solver(**device),
     "MPPIState.init": lambda device: tmppi.MPPIState.init(_flag()[0], **device),
@@ -307,6 +329,21 @@ DEVICE_DEFAULTS = {
     "paths.line": lambda device: line([0.0, 0.0], [1.0, 1.0], num_points=5, **device),
     "paths.circle_with_speed": lambda device: circle_with_speed(2.0, 8, **device),
     "paths.lemniscate_with_speed": lambda device: lemniscate_with_speed(2.0, 8, **device),
+    "NMPCSolver": lambda device: tsqp.NMPCSolver(_nmpc_cfg(), unicycle, **device),
+    "NMPCState.init": lambda device: tsqp.NMPCState.init(_nmpc_cfg(), [0.0, 0.0, 0.0], **device),
+    "presets.diff_drive_nmpc": lambda device: presets.diff_drive_nmpc(
+        [1.0, 0.0, 0.0], N=5, obstacles=[[0.5, 0.5, 0.2]], **device),
+    "presets.racecar_nmpc": lambda device: presets.racecar_nmpc([1.0, 0.0, 0.0, 0.0], N=5,
+                                                                **device),
+    "presets.four_wheel_nmpc": lambda device: presets.four_wheel_nmpc(
+        [1.0, 0.5, 0.0, 0.0, 0.0], N=5, **device),
+    "presets.nmpc_fleet": lambda device: presets.nmpc_fleet(B=2, N=5, **device),
+    "make_sharded_nmpc_fleet": _sharded_nmpc,
+    "ocp_params_from_numpy": lambda device: tsqp.ocp_params_from_numpy(
+        np.eye(3), np.eye(2), np.eye(3), np.zeros((5, 5)), np.zeros(3), -np.ones(3),
+        np.ones(3), -np.ones(2), np.ones(2), **device),
+    "nmpc state_from_numpy": lambda device: tsqp.state_from_numpy(np.zeros((6, 3)),
+                                                                  np.zeros((5, 2)), **device),
 }
 
 
@@ -337,7 +374,8 @@ def test_port_never_imports_jax():
         "import dnn_mppi_mpc_tpu_torch, dnn_mppi_mpc_tpu_torch.presets\n"
         "import dnn_mppi_mpc_tpu_torch.solvers.mppi, dnn_mppi_mpc_tpu_torch.ops.cuda\n"
         "import dnn_mppi_mpc_tpu_torch.utils.benchtime, dnn_mppi_mpc_tpu_torch._build\n"
-        "import dnn_mppi_mpc_tpu_torch.parallel\n"
+        "import dnn_mppi_mpc_tpu_torch.parallel, dnn_mppi_mpc_tpu_torch.solvers.sqp\n"
+        "import dnn_mppi_mpc_tpu_torch.testing.oracle_nmpc\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'dnn_mppi_mpc_tpu'))\n"
         "assert not bad, bad\n"
@@ -371,3 +409,21 @@ def test_flagship_closed_loop_on_card(cuda_device):
     assert kern.diffdrive_mppi_tick.launches == 20
     assert kern.diffdrive_mppi_tick_plain.calls == 0
     assert int(torch.stack(statuses).max()) == 0 and bool(torch.isfinite(x).all())
+
+
+def test_resolve_device_names_the_current_card(monkeypatch):
+    """"cuda" without an index resolves to the card its tensors report
+    (cuda:0), so a step built with the default device accepts the tensors
+    made on it (torch.device("cuda") != torch.device("cuda:0"))."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert tcfg.resolve_device("cuda") == torch.device("cuda", 0)
+    assert tcfg.resolve_device(torch.device("cuda", 0)) == torch.device("cuda", 0)
+    assert tcfg.resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.cuda
+def test_fleet_step_runs_on_the_default_device(cuda_device):
+    step, params, states, _ = presets.mppi_fleet(2, 128, 5)
+    u0s, _, _ = step(params, states, torch.zeros((2, 3), device=cuda_device))
+    assert u0s.shape == (2, 2)

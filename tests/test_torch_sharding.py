@@ -21,7 +21,13 @@
   1e-5, as tests/test_generic_tick.py:114-123); on two gloo ranks equal to
   the unsharded step (u0 rtol 1e-5 atol 1e-6, costs 1e-4, as
   tests/test_generic_tick.py:367-370), and without injected ε each rank's
-  own draws are N(0, Σ) by moments and give the step's u0.
+  own draws are N(0, Σ) by moments and give the step's u0;
+* the sharded NMPC fleet ``make_sharded_nmpc_fleet`` (the suite's
+  ``presets.nmpc_fleet`` at B = 4, N = 5, kernel QP backend, its plain
+  version here): at world size 1 equal to ``batched_solve`` (exactly: the
+  same ops), on two gloo ranks each rank's members equal the same members
+  of the unsharded fleet (rtol 1e-5, atol 1e-6: the batched ops see two
+  members instead of four), and B % n raises.
 """
 
 from __future__ import annotations
@@ -305,6 +311,17 @@ def _rank_main(rank: int, store_path: str, out_dir: str) -> None:
             odd_raised = False
         except ValueError:
             odd_raised = True
+        nsolver, nparams, nstates, nx0s = presets.nmpc_fleet(B=4, N=5, device="cpu")
+        nfleet = parallel.make_sharded_nmpc_fleet(nsolver, device="cpu")
+        nu0, nst, naux = nfleet(nparams, nstates, nx0s)
+        try:
+            nfleet(nparams, nstates, nx0s[:3])
+            nmpc_odd_raised = False
+        except ValueError:
+            nmpc_odd_raised = True
+        torch.save(dict(u0=nu0, X=nst.X, kkt=naux.kkt_residual, odd_raised=nmpc_odd_raised,
+                        members=(nfleet.members(4).start, nfleet.members(4).stop)),
+                   f"{out_dir}/nmpc{rank}.pt")
         torch.save(dict(u0=u0, u_prev=st.u_prev, costs=aux.costs, fleet_u0=fu0,
                         fleet_u_prev=fst.u_prev, members=(fleet.members(4).start, fleet.members(4).stop),
                         odd_raised=odd_raised),
@@ -378,3 +395,39 @@ def test_two_gloo_ranks_match_one(two_ranks, gloo_world1):
         torch.testing.assert_close(out["fleet_u0"], fu0[2 * r:2 * r + 2], rtol=0, atol=0)
         torch.testing.assert_close(out["fleet_u_prev"], fst.u_prev[2 * r:2 * r + 2],
                                    rtol=0, atol=0)
+
+
+# --- the sharded NMPC fleet ---------------------------------------------------------
+
+
+def test_sharded_nmpc_fleet_world1_equals_batched_solve(gloo_world1):
+    solver, params, states, x0s = presets.nmpc_fleet(B=4, N=5, device="cpu")
+    fleet = parallel.make_sharded_nmpc_fleet(solver, device="cpu")
+    assert fleet.members(4) == slice(0, 4)
+    kern.reset_counts()
+    u0s, st, aux = fleet(params, states, x0s)
+    assert kern.batched_fused_barrier_qp_solve_plain.calls == solver.cfg.sqp_iters
+    ref_u0, ref_st, ref_aux = solver.batched_solve()(params, states, x0s)
+    torch.testing.assert_close(u0s, ref_u0, rtol=0, atol=0)
+    torch.testing.assert_close(st.X, ref_st.X, rtol=0, atol=0)
+    torch.testing.assert_close(aux.kkt_residual, ref_aux.kkt_residual, rtol=0, atol=0)
+
+
+def test_sharded_nmpc_fleet_rejects_another_device(gloo_world1):
+    solver, params, states, x0s = presets.nmpc_fleet(B=2, N=4, device="cpu")
+    fleet = parallel.make_sharded_nmpc_fleet(solver, device="cpu")
+    with pytest.raises(ValueError, match="built for"):
+        fleet(params, states, x0s.to("meta"))
+
+
+def test_two_gloo_ranks_nmpc_fleet_slices(two_ranks):
+    ranks = [torch.load(two_ranks / f"nmpc{r}.pt") for r in range(2)]
+    solver, params, states, x0s = presets.nmpc_fleet(B=4, N=5, device="cpu")
+    u0s, st, aux = solver.batched_solve()(params, states, x0s)
+    for r, out in enumerate(ranks):
+        assert out["members"] == (2 * r, 2 * r + 2)
+        assert out["odd_raised"]
+        torch.testing.assert_close(out["u0"], u0s[2 * r:2 * r + 2], rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(out["X"], st.X[2 * r:2 * r + 2], rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(out["kkt"], aux.kkt_residual[2 * r:2 * r + 2], rtol=1e-4,
+                                   atol=1e-6)
