@@ -141,6 +141,44 @@ class DmmQPArgs(ctypes.Structure):
     ]
 
 
+# DMM_MLP_MAX_LAYERS in csrc/mlp_step.cu
+MLP_MAX_LAYERS = 16
+
+
+class DmmMlpArgs(ctypes.Structure):
+    """ctypes mirror of ``struct DmmMlpArgs`` in csrc/mlp_step.cu."""
+
+    _fields_ = [
+        ("x", ctypes.c_void_p),
+        ("out", ctypes.c_void_p),
+        ("W", ctypes.c_void_p * MLP_MAX_LAYERS),
+        ("b", ctypes.c_void_p * MLP_MAX_LAYERS),
+        ("dims", ctypes.c_int * (MLP_MAX_LAYERS + 1)),
+    ] + [(name, ctypes.c_int) for name in ("n_layers", "K", "bf16", "d_max")]
+
+
+# DMM_CHAIN_MAX_LAYERS and DMM_CHAIN_MAX_BLOCKS in csrc/dense_chain.cu
+CHAIN_MAX_LAYERS = 64
+CHAIN_MAX_BLOCKS = 16
+
+
+class DmmChainArgs(ctypes.Structure):
+    """ctypes mirror of ``struct DmmChainArgs`` in csrc/dense_chain.cu."""
+
+    _fields_ = [
+        ("x", ctypes.c_void_p),
+        ("out", ctypes.c_void_p),
+        ("W", ctypes.c_void_p * CHAIN_MAX_LAYERS),
+        ("b", ctypes.c_void_p * CHAIN_MAX_LAYERS),
+        ("c_in", ctypes.c_int * CHAIN_MAX_LAYERS),
+        ("ld", ctypes.c_int * CHAIN_MAX_LAYERS),
+        ("down", ctypes.c_int * CHAIN_MAX_BLOCKS),
+    ] + [
+        (name, ctypes.c_int)
+        for name in ("B", "n_layers", "n_blocks", "n_convs", "out_dim", "c_max", "y_max")
+    ]
+
+
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
     cand = Path(home) / "bin" / "nvcc"
@@ -209,16 +247,23 @@ def load_kernels() -> ctypes.CDLL:
     lib.dmm_generic_args_size.restype = ctypes.c_int
     lib.dmm_qp_args_size.argtypes = []
     lib.dmm_qp_args_size.restype = ctypes.c_int
+    lib.dmm_mlp_args_size.argtypes = []
+    lib.dmm_mlp_args_size.restype = ctypes.c_int
+    lib.dmm_chain_args_size.argtypes = []
+    lib.dmm_chain_args_size.restype = ctypes.c_int
     for fn in (lib.dmm_rollout_costs, lib.dmm_mppi_tick, lib.dmm_weighted_noise_reduce,
                lib.dmm_fleet_mppi_tick, lib.dmm_bicycle_rollout_costs, lib.dmm_bicycle_tick,
-               lib.dmm_generic_rollout_costs, lib.dmm_generic_tick, lib.dmm_barrier_qp):
+               lib.dmm_generic_rollout_costs, lib.dmm_generic_tick, lib.dmm_barrier_qp,
+               lib.dmm_fused_mlp, lib.dmm_resnet_chain):
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     for struct, size_fn in ((DmmArgs, lib.dmm_args_size),
                             (DmmFleetArgs, lib.dmm_fleet_args_size),
                             (DmmBicycleArgs, lib.dmm_bicycle_args_size),
                             (DmmGenericArgs, lib.dmm_generic_args_size),
-                            (DmmQPArgs, lib.dmm_qp_args_size)):
+                            (DmmQPArgs, lib.dmm_qp_args_size),
+                            (DmmMlpArgs, lib.dmm_mlp_args_size),
+                            (DmmChainArgs, lib.dmm_chain_args_size)):
         if size_fn() != ctypes.sizeof(struct):
             raise RuntimeError(
                 f"{struct.__name__} layout mismatch: C {size_fn()} bytes, "
@@ -239,11 +284,16 @@ def launch(entry: str, args: ctypes.Structure, device: torch.device) -> None:
 
 
 __all__ = [
+    "CHAIN_MAX_BLOCKS",
+    "CHAIN_MAX_LAYERS",
+    "MLP_MAX_LAYERS",
     "OUTLINE_POINTS",
     "DmmArgs",
     "DmmBicycleArgs",
+    "DmmChainArgs",
     "DmmFleetArgs",
     "DmmGenericArgs",
+    "DmmMlpArgs",
     "DmmQPArgs",
     "GENERIC_CONSTANTS",
     "build",

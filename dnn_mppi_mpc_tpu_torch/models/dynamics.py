@@ -2,13 +2,14 @@
 
 Counterpart of ``dnn_mppi_mpc_tpu/models/dynamics.py``: the unicycle, the
 kinematic bicycle, the four-wheel torque-input model and the dynamic bicycle
-with tire slip (``residual_dynamics`` comes with the learned models).
+with tire slip, and :func:`residual_dynamics`, which adds a learned residual
+(``models/learned.py``) to any of them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import Callable, Optional, Union
 
 import torch
 
@@ -134,6 +135,19 @@ def dynamic_bicycle(
     )
 
 
+def residual_dynamics(analytic: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+                      learned: Callable[[torch.Tensor], torch.Tensor]
+                      ) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+    """Analytic dynamics plus a learned residual: f(x, u) = f_a(x, u) +
+    NN(concat(x, u)); ``learned`` receives the concatenated features (e.g.
+    ``models.learned.make_residual_fn``)."""
+
+    def f(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+        return analytic(x, u) + learned(torch.cat([x, u], dim=-1))
+
+    return f
+
+
 __all__ = [
     "BicycleParams",
     "DynamicBicycleParams",
@@ -141,5 +155,6 @@ __all__ = [
     "dynamic_bicycle",
     "four_wheel_torque",
     "kinematic_bicycle",
+    "residual_dynamics",
     "unicycle",
 ]

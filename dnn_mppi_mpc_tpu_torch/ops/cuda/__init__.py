@@ -1,19 +1,27 @@
 """Hand-written CUDA kernels of the MPPI hot paths — the diff-drive ticks,
 the two phases of the sample-sharded tick, the fleet tick, the race-car
 (kinematic bicycle) ticks, the generic tick and rollout over tile-step
-dynamics and the NMPC engine's fused barrier-Riccati QP (one problem, or a
-fleet in one launch) — each beside its plain PyTorch version (counterpart of
+dynamics, the NMPC engine's fused barrier-Riccati QP (one problem, or a
+fleet in one launch), and the learned residuals' fused MLP and folded
+ResNet chain — each beside its plain PyTorch version (counterpart of
 ``dnn_mppi_mpc_tpu/ops/pallas``).
 
 Importing this package builds nothing: the kernels are compiled at their
 first launch (``dnn_mppi_mpc_tpu_torch._build``)."""
 
 from .bicycle_tick import bicycle_mppi_tick, bicycle_mppi_tick_plain
+from .dense_chain import make_resnet_chain_fn, resnet_chain, resnet_chain_plain
 from .generic_tick import (
     generic_mppi_tick,
     generic_mppi_tick_plain,
     generic_rollout_costs,
     generic_rollout_costs_plain,
+)
+from .mlp_step import (
+    fold_residual_mlp,
+    fused_mlp_apply,
+    fused_mlp_apply_plain,
+    make_fused_residual_step,
 )
 from .mppi_tick import diffdrive_mppi_tick, diffdrive_mppi_tick_plain
 from .mppi_tick_blocked import (
@@ -45,6 +53,8 @@ KERNEL_WRAPPERS = (
     generic_rollout_costs,
     fused_barrier_qp_solve,
     batched_fused_barrier_qp_solve,
+    fused_mlp_apply,
+    resnet_chain,
 )
 PLAIN_VERSIONS = (
     diffdrive_rollout_costs_plain,
@@ -58,6 +68,8 @@ PLAIN_VERSIONS = (
     generic_rollout_costs_plain,
     fused_barrier_qp_solve_plain,
     batched_fused_barrier_qp_solve_plain,
+    fused_mlp_apply_plain,
+    resnet_chain_plain,
 )
 
 
@@ -86,13 +98,20 @@ __all__ = [
     "diffdrive_rollout_costs_plain",
     "fleet_mppi_tick",
     "fleet_mppi_tick_plain",
+    "fold_residual_mlp",
     "fused_barrier_qp_solve",
     "fused_barrier_qp_solve_plain",
+    "fused_mlp_apply",
+    "fused_mlp_apply_plain",
     "generic_mppi_tick",
     "generic_mppi_tick_plain",
     "generic_rollout_costs",
     "generic_rollout_costs_plain",
+    "make_fused_residual_step",
+    "make_resnet_chain_fn",
     "reset_counts",
+    "resnet_chain",
+    "resnet_chain_plain",
     "weighted_noise_reduce",
     "weighted_noise_reduce_plain",
 ]

@@ -19,6 +19,9 @@ def f32(x: float) -> float:
 # The rollouts stage their per-tick constants in shared memory under the
 # static 48 KB limit (kMaxSmemBytes in csrc/mppi_reductions.cuh).
 MAX_SMEM_BYTES = 48 * 1024
+# The dynamic shared memory one block may opt into on sm_90 (227 KB): the
+# fused MLP's and the ResNet chain's activation buffers.
+MAX_SMEM_OPT_IN = 232448
 TWO_PI = f32(2.0 * np.pi)
 
 
@@ -185,6 +188,7 @@ def weighted_noise_plain(w: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
 
 __all__ = [
     "MAX_SMEM_BYTES",
+    "MAX_SMEM_OPT_IN",
     "TWO_PI",
     "check",
     "check_seed",

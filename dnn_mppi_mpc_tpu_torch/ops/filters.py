@@ -8,6 +8,7 @@ package's); :func:`apply_filter` is then one float32 matmul with TF32 off.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from functools import lru_cache
 
@@ -80,17 +81,26 @@ def filter_matrix(kind_value: str, T: int, window: int, polyorder: int = 3) -> n
     return out
 
 
+@contextlib.contextmanager
+def full_f32():
+    """Inside the block, float32 matrix products (cuBLAS) and convolutions
+    (cuDNN) on the card run in full float32, not TF32; both flags are
+    restored afterwards."""
+    prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` in full float32: TF32 is switched off for this one call on
     the card and restored afterwards."""
     if not a.is_cuda:
         return a @ b
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with full_f32():
         return a @ b
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 @lru_cache(maxsize=64)
@@ -109,4 +119,5 @@ def apply_filter(x: torch.Tensor, kind, window: int, polyorder: int = 3) -> torc
     return matmul_f32(F, x)
 
 
-__all__ = ["filter_matrix", "filter_tensor", "savgol_coefficients", "apply_filter", "matmul_f32"]
+__all__ = ["filter_matrix", "filter_tensor", "full_f32", "savgol_coefficients", "apply_filter",
+           "matmul_f32"]

@@ -13,6 +13,10 @@ collision) as one :class:`MPPISolver` and its params.
 (``utils/benchsuite.py:223-258``): B diff-drive controllers, each tracking
 its own line, through the fleet tick.
 
+:func:`dnn_mppi` and :func:`dnn_nmpc` are the JAX package's learned-residual
+presets: MPPI and SQP-RTI NMPC over the unicycle plus a learned residual
+(``models/learned.py``), with the residual function the caller binds.
+
 :func:`diff_drive_nmpc`, :func:`racecar_nmpc` and :func:`four_wheel_nmpc`
 are the JAX package's NMPC presets (SQP-RTI on the unicycle with obstacle
 h-rows, the kinematic or dynamic bicycle, the four-wheel torque model with
@@ -25,7 +29,7 @@ Each runs on the card unless the caller passes ``device="cpu"``.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -45,6 +49,7 @@ from .models.dynamics import (
     dynamic_bicycle,
     four_wheel_torque,
     kinematic_bicycle,
+    residual_dynamics,
     unicycle,
 )
 from .models.integrators import euler_step
@@ -352,5 +357,78 @@ def nmpc_fleet(B: int = 128, N: int = 30, qp_backend: str = "kernel", device="cu
     return solver, params, NMPCState.init(solver.cfg, x0s, device=device), x0s
 
 
-__all__ = ["diff_drive_nmpc", "flagship", "four_wheel_nmpc", "mppi_fleet", "nmpc_fleet",
-           "racecar_mppi", "racecar_nmpc"]
+def dnn_mppi(ref_path, learned_fn: Callable[[torch.Tensor], torch.Tensor],
+             num_samples: int = 1024, horizon: int = 25, dt: float = 0.05,
+             residual_level: str = "step", device="cuda", **overrides
+             ) -> tuple[MPPISolver, MPPIParams]:
+    """DNN-MPPI: sampling MPPI over the unicycle plus a learned residual.
+    ``learned_fn`` maps concat(x, u) features to a residual
+    (``models.learned.make_residual_fn`` or ``residual_from_train_state``
+    bind an MLP or a conv ResNet-18/50; ``ops.cuda.make_resnet_chain_fn``
+    gives the chain kernel). ``residual_level``: ``'step'`` corrects the
+    discrete transition, x⁺ = euler(x, u) + NN(x, u) (what the data
+    pipeline regresses); ``'rate'`` corrects ẋ, then Euler. The residual is
+    cast to the features' dtype. λ = 1, α = 0.2, exploration temperature
+    1/1e-4, the moving-average-edge filter of window min(10, T), W = 20,
+    Σ = diag(0.2, 0.1), weights (8, 8, 2), u ∈ [(−3, −3.14), (3, 3.14)];
+    the scan path (each rollout step calls ``learned_fn`` on (K, 5)). For
+    the fused MLP kernel, bind ``ops.cuda.make_fused_residual_step`` as the
+    dynamics step of an :class:`MPPISolver` on this config."""
+    device = resolve_device(device)
+
+    def learned(feats):
+        return learned_fn(feats).to(feats.dtype)
+
+    if residual_level == "rate":
+        dyn = residual_dynamics(unicycle, learned)
+
+        def step(x, u):
+            return euler_step(dyn, x, u, dt)
+    elif residual_level == "step":
+        def step(x, u):
+            return euler_step(unicycle, x, u, dt) + learned(torch.cat([x, u], dim=-1))
+    else:
+        raise ValueError(f"residual_level must be 'step' or 'rate': {residual_level!r}")
+
+    kw = dict(num_samples=num_samples, horizon=horizon, dim_x=3, dim_u=2, dt=dt, lam=1.0,
+              alpha=0.2, exploration=0.0001, temperature=Temperature.EXPLORATION,
+              filter=SmoothingFilter.MOVING_AVERAGE_EDGE, filter_window=min(10, horizon),
+              waypoint_search_len=20)
+    kw.update(overrides)
+    cfg = MPPIConfig(**kw)
+
+    def f32(a):
+        return torch.as_tensor(a, dtype=torch.float32).to(device)
+
+    params = MPPIParams(sigma=f32([[0.2, 0.0], [0.0, 0.1]]), stage_weight=f32([8.0, 8.0, 2.0]),
+                        terminal_weight=f32([8.0, 8.0, 2.0]), u_min=f32([-3.0, -3.14]),
+                        u_max=f32([3.0, 3.14]), ref_path=f32(ref_path))
+    stage, terminal = make_tracking_costs(cfg)
+    return MPPISolver(cfg, step, stage, terminal, device=device), params
+
+
+def dnn_nmpc(goal, learned_fn: Callable[[torch.Tensor], torch.Tensor], N: int = 10,
+             dt: float = 0.1, obstacles=None, sqp_iters: int = 2, device="cuda",
+             **overrides) -> tuple[NMPCSolver, OCPParams]:
+    """DNN-NMPC: the unicycle plus a learned rate residual through the SQP
+    engine (f = unicycle + NN(x, u), ERK(4, 3)); the linearization
+    differentiates through ``learned_fn`` with ``vmap(jacrev)``, so bind the
+    plain net (``models.learned.make_residual_fn``), not a kernel.
+    LINEAR_LS with Q = Qe = diag(10, 10, 0.5), R = diag(0.2, 0.05), x ∈ ±20,
+    u ∈ ±2, one circle h-row per row of ``obstacles``. ``overrides`` are
+    :class:`SQPConfig` fields (``qp_backend="kernel"`` for the QP kernel)."""
+    device = resolve_device(device)
+    n_obs = 0 if obstacles is None else np.asarray(obstacles).shape[0]
+    cfg = SQPConfig(N=N, dim_x=3, dim_u=2, dt=dt, sqp_iters=sqp_iters,
+                    qp_iters=overrides.pop("qp_iters", 12), n_h_constraints=n_obs, **overrides)
+    solver = NMPCSolver(cfg, residual_dynamics(unicycle, learned_fn),
+                        h_fn=None if obstacles is None else circle_obstacle_h, device=device)
+    params = _ls_params(Q=np.diag([10.0, 10.0, 0.5]), R=np.diag([0.2, 0.05]),
+                        Qe=np.diag([10.0, 10.0, 0.5]), goal=goal, N=N, lbx=np.full(3, -20.0),
+                        ubx=np.full(3, 20.0), lbu=[-2.0, -2.0], ubu=[2.0, 2.0], p=obstacles,
+                        device=device)
+    return solver, params
+
+
+__all__ = ["diff_drive_nmpc", "dnn_mppi", "dnn_nmpc", "flagship", "four_wheel_nmpc",
+           "mppi_fleet", "nmpc_fleet", "racecar_mppi", "racecar_nmpc"]

@@ -344,7 +344,31 @@ DEVICE_DEFAULTS = {
         np.ones(3), -np.ones(2), np.ones(2), **device),
     "nmpc state_from_numpy": lambda device: tsqp.state_from_numpy(np.zeros((6, 3)),
                                                                   np.zeros((5, 2)), **device),
+    "models.MLP": lambda device: _learned().MLP(hidden=8, depth=1, **device),
+    "models.ResNet1D": lambda device: _learned().ResNet1D(3, "18", **device),
+    "Standardizer.from_numpy": lambda device: _learned().Standardizer.from_numpy(
+        np.zeros(5), np.ones(5), **device),
+    "make_fused_residual_step": lambda device: _kern().make_fused_residual_step(
+        unicycle, _learned().MLP(hidden=8, depth=1, device="cpu"), 0.05, **device),
+    "make_resnet_chain_fn": lambda device: _kern().make_resnet_chain_fn(
+        _learned().ResNet1D(3, "18", device="cpu"), **device),
+    "presets.dnn_mppi": lambda device: presets.dnn_mppi(
+        np.zeros((10, 3)), lambda f: f[..., :3], num_samples=16, horizon=4, **device),
+    "presets.dnn_nmpc": lambda device: presets.dnn_nmpc([1.0, 0.0, 0.0], lambda f: f[..., :3],
+                                                        N=5, **device),
 }
+
+
+def _learned():
+    from dnn_mppi_mpc_tpu_torch.models import learned
+
+    return learned
+
+
+def _kern():
+    from dnn_mppi_mpc_tpu_torch.ops import cuda
+
+    return cuda
 
 
 @pytest.mark.parametrize("entry", list(DEVICE_DEFAULTS))

@@ -57,6 +57,16 @@ GOAL = [3.0, 2.0, 0.0]
 OBSTACLES = [[1.5, 1.0, 0.3], [2.5, 1.8, 0.3]]  # the JAX suite's nmpc_rti row
 
 
+@pytest.fixture
+def one_torch_thread():
+    """Small tensors: one intra-op thread spares every op the thread pool's
+    wake-up cost, which would dominate its time."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close(name, got, want, rtol, atol):
     got = np.asarray(got, np.float64)
     want = np.asarray(want, np.float64)
@@ -258,6 +268,68 @@ def test_four_wheel_nmpc_irk_tick_matches_jax():
     ts, tp = presets.four_wheel_nmpc(goal, N=10, device="cpu")
     assert ts.cfg.integrator == "irk"
     _one_tick(js, jp, ts, tp, [0.05, -0.05, 0.1, 0.2, 0.1], "four-wheel irk")
+
+
+@pytest.mark.parametrize("jax_backend,port_backend", [("xla", "torch"), ("pallas", "kernel")])
+def test_dnn_nmpc_tick_matches_jax(jax_backend, port_backend, one_torch_thread):
+    """``presets.dnn_nmpc`` with an MLP rate residual (the suite's 5→128→128→3
+    net with a non-zero head, × 0.05) and one obstacle: one tick against the
+    JAX preset, the linearization differentiating through the plain net on
+    both sides (JAX jacfwd through Flax, the port jacrev)."""
+    from dnn_mppi_mpc_tpu.models.learned import make_residual_fn as j_make_residual_fn
+    from dnn_mppi_mpc_tpu_torch.models.learned import make_residual_fn
+    from test_torch_learned import flax_mlp
+
+    jm, variables, tm = flax_mlp(128, 1, seed=12)
+    jnet, tnet = j_make_residual_fn(jm, variables), make_residual_fn(tm)
+    goal, obs = [1.5, 0.8, 0.0], [[0.8, 0.3, 0.2]]
+    js, jp = jpresets.dnn_nmpc(jnp.asarray(goal), lambda f: 0.05 * jnet(f), N=10,
+                               obstacles=jnp.asarray(obs), **_jax_cfg(jax_backend))
+    ts, tp = presets.dnn_nmpc(goal, lambda f: 0.05 * tnet(f), N=10, obstacles=obs,
+                              qp_backend=port_backend, device="cpu")
+    kern.reset_counts()
+    _one_tick(js, jp, ts, tp, [0.1, -0.1, 0.2], f"dnn_nmpc {port_backend}")
+    assert kern.fused_barrier_qp_solve_plain.calls == (2 if port_backend == "kernel" else 0)
+
+
+def test_dnn_nmpc_loop_matches_the_jax_reference(f32_mode, one_torch_thread):
+    """chip_smoke.py's dnn_nmpc loop — ``presets.dnn_nmpc`` to its goal from
+    x0 = 0 with the seeded suite net (``chip_smoke.mlp_tree``) as the rate
+    residual — on the JAX package (XLA backend, float32) and on the port
+    (the QP kernel's plain version), free running: the JAX run is
+    chip_smoke's ``DNN_NMPC_JAX_REFERENCE`` (to 1e-3), and the port's final
+    state is within 1e-3 of JAX's."""
+    import chip_smoke as cs
+    from dnn_mppi_mpc_tpu.models.learned import MLP as JMLP
+    from dnn_mppi_mpc_tpu.models.learned import make_residual_fn as j_make_residual_fn
+    from dnn_mppi_mpc_tpu_torch.models.learned import make_residual_fn
+
+    tree = cs.mlp_tree()
+    jnet = j_make_residual_fn(JMLP(out_dim=3, hidden=128, depth=1), tree)
+    goal = np.asarray(cs.DNN_NMPC_GOAL, np.float32)
+    js, jp = jpresets.dnn_nmpc(jnp.asarray(goal), jnet, **_jax_cfg("xla"))
+    ts, tp = presets.dnn_nmpc(list(cs.DNN_NMPC_GOAL), make_residual_fn(cs.residual_mlp("cpu")),
+                              qp_backend="kernel", device="cpu")
+    x, xt = jnp.zeros(3, jnp.float32), torch.zeros(3)
+    st, stt = js.init(x), ts.init(xt)
+    xs = [np.asarray(x)]
+    for _ in range(cs.DNN_NMPC_TICKS):
+        u0, st, aux = js.solve(jp, st, x)
+        x = js.dyn_step(x, u0)
+        xs.append(np.asarray(x))
+        assert int(aux.status) == 0
+        u0t, stt, auxt = ts.solve(tp, stt, xt)
+        xt = ts.dyn_step(xt, u0t)
+        assert int(auxt.status) == 0
+    d = np.linalg.norm(np.stack(xs)[:, :2] - goal[:2], axis=1)
+    ref = {"goal_dist_tick10_m": float(d[10]), "goal_dist_end_m": float(d[-1]),
+           "final_x": np.asarray(x).tolist()}
+    print("JAX CPU reference:", ref)
+    want = cs.DNN_NMPC_JAX_REFERENCE
+    _close("JAX loop vs chip_smoke's reference", [ref["goal_dist_tick10_m"], ref["goal_dist_end_m"]]
+           + ref["final_x"], [want["goal_dist_tick10_m"], want["goal_dist_end_m"]]
+           + want["final_x"], 0.0, 1e-3)
+    _close("port loop final state vs JAX", xt.numpy(), np.asarray(x), 0.0, 1e-3)
 
 
 def _y(lib):
