@@ -154,7 +154,8 @@ class DmmMlpArgs(ctypes.Structure):
         ("W", ctypes.c_void_p * MLP_MAX_LAYERS),
         ("b", ctypes.c_void_p * MLP_MAX_LAYERS),
         ("dims", ctypes.c_int * (MLP_MAX_LAYERS + 1)),
-    ] + [(name, ctypes.c_int) for name in ("n_layers", "K", "bf16", "d_max")]
+    ] + [(name, ctypes.c_int)
+         for name in ("n_layers", "K", "bf16", "d_max", "stage_floats")]
 
 
 # DMM_CHAIN_MAX_LAYERS and DMM_CHAIN_MAX_BLOCKS in csrc/dense_chain.cu
@@ -171,11 +172,15 @@ class DmmChainArgs(ctypes.Structure):
         ("W", ctypes.c_void_p * CHAIN_MAX_LAYERS),
         ("b", ctypes.c_void_p * CHAIN_MAX_LAYERS),
         ("c_in", ctypes.c_int * CHAIN_MAX_LAYERS),
-        ("ld", ctypes.c_int * CHAIN_MAX_LAYERS),
+        ("k_pad", ctypes.c_int * CHAIN_MAX_LAYERS),
+        ("n_pad", ctypes.c_int * CHAIN_MAX_LAYERS),
         ("down", ctypes.c_int * CHAIN_MAX_BLOCKS),
+    ] + [(name, ctypes.c_int * CHAIN_MAX_LAYERS) for name in ("bm", "bn")] + [
+        (name, ctypes.c_void_p) for name in ("h", "r", "y0", "y1")
     ] + [
         (name, ctypes.c_int)
-        for name in ("B", "n_layers", "n_blocks", "n_convs", "out_dim", "c_max", "y_max")
+        for name in ("B", "B_pad", "grid", "n_layers", "n_blocks", "n_convs", "out_dim",
+                     "c_max", "y_max")
     ]
 
 
@@ -251,6 +256,8 @@ def load_kernels() -> ctypes.CDLL:
     lib.dmm_mlp_args_size.restype = ctypes.c_int
     lib.dmm_chain_args_size.argtypes = []
     lib.dmm_chain_args_size.restype = ctypes.c_int
+    lib.dmm_chain_occupancy.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+    lib.dmm_chain_occupancy.restype = ctypes.c_int
     for fn in (lib.dmm_rollout_costs, lib.dmm_mppi_tick, lib.dmm_weighted_noise_reduce,
                lib.dmm_fleet_mppi_tick, lib.dmm_bicycle_rollout_costs, lib.dmm_bicycle_tick,
                lib.dmm_generic_rollout_costs, lib.dmm_generic_tick, lib.dmm_barrier_qp,

@@ -17,28 +17,37 @@
 // What bounds it on the card. Operations, at the shapes the MPPI rollout
 // gives it: 2·K·Σ d_l·d_{l+1} (35.7 MFLOP for 5→128→128→3 at K = 1 024,
 // 0.53 µs at 67 TFLOP/s; 1.08 GFLOP, 16 µs, for the 512-wide reference net);
-// the weights (69 KiB, 2 MiB) and rows are far fewer bytes. Design: rows are
-// independent, so a block owns kRows = 8 of them (128 blocks at K = 1 024,
-// about one per SM) and walks every layer for them, the activations kept on
-// chip in a ping-pong of two [feature][row] buffers in dynamic shared memory
-// (2·8·d_max floats, opted in past 48 KiB: up to d_max = 3 632), so no
-// activation goes to device memory between layers. Each thread owns one output
-// column at a time and all 8 rows of it: per input feature k it reads one
-// weight (coalesced across the warp, from L2: the weights stream, they are
-// not staged) and the 8 rows' h[k] (two broadcast float4 loads), and adds 8
-// products. A tiled warpgroup-MMA version is later work; it would also need
-// the plain version's summation order to change.
+// the weights (69 KiB, 2 MiB) and rows are far fewer bytes. The float32
+// products stay off the tensor cores (no TF32: the port's rule of parity),
+// and one thread sums each output from its first term in feature order, so
+// the kernel rounds op for op like its plain PyTorch version
+// (ops/cuda/mlp_step.py fused_mlp_apply_plain; the library is built with
+// -fmad=false, see _build.py); tanhf is the one function whose last bit may
+// differ from torch.tanh.
 //
-// Each output is summed from its first term in feature order, then the bias
-// added, and the library is built with -fmad=false (see _build.py), so the
-// kernel rounds op for op like its plain PyTorch version
-// (ops/cuda/mlp_step.py fused_mlp_apply_plain); tanhf is the one function
-// whose last bit may differ from torch.tanh.
+// Design. Rows are independent: a block of 256 threads owns R = 8 rows and
+// walks every layer for them, the activations on chip in a ping-pong of two
+// [feature][row] buffers in shared memory. The weights are staged in shared
+// memory by cp.async (16-byte copies where the source is 16-byte aligned,
+// 4-byte copies for the rest: the 5-wide input, the 3-wide head) in k-chunks
+// of at most stage_floats floats (64 KB; a layer that fits is one chunk)
+// through a ring of two stages: the next chunk's copy, of this layer or the
+// next, runs under the current chunk's multiply-adds. Each thread owns a
+// register tile of all 8 rows × RN adjacent columns (RN the smallest power
+// of two with 256·RN ≥ the layer's width, at most 8), so each weight it reads
+// from shared memory feeds 8 multiply-adds and each activation (a broadcast
+// float4 of four rows) feeds RN. Every block streams all the weights from L2
+// (2 MiB a block for the 512-wide net, 270 MB a call at K = 1 024): 16 rows
+// a block would halve that, but at K = 1 024 leave 64 blocks for 132 SMs,
+// each with twice the multiply-adds (two of them a term: -fmad=false), and
+// measured slower on one H100; a cluster that multicasts each weight chunk
+// to two blocks is the way to cut the L2 reads without losing blocks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 #define DMM_MLP_MAX_LAYERS 16
 
@@ -54,7 +63,8 @@ struct DmmMlpArgs {
   int n_layers;
   int K;
   int bf16;
-  int d_max;  // max over dims: the activation buffers' feature extent
+  int d_max;         // max over dims: the activation buffers' feature extent
+  int stage_floats;  // floats in one weight stage (a multiple of 4, ≥ every layer's width)
 };
 
 }  // extern "C"
@@ -62,7 +72,8 @@ struct DmmMlpArgs {
 namespace {
 
 constexpr int kRows = 8;
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;
+constexpr int kMaxRN = 8;
 constexpr int kMaxSmem = 232448;  // 227 KB, the opt-in limit of one block on sm_90
 
 __device__ __forceinline__ float round_bf16(float v) {
@@ -74,28 +85,176 @@ __device__ __forceinline__ float operand(float v) {
   return BF16 ? round_bf16(v) : v;
 }
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The chunk rows of layer l: as many weight rows as one stage holds.
+__device__ __forceinline__ int chunk_rows(const DmmMlpArgs& a, int l) {
+  return min(a.dims[l], a.stage_floats / a.dims[l + 1]);
+}
+
+// The next weight chunk to copy: layer l, rows from k0.
+struct Cursor {
+  int l, k0;
+};
+
+// Copy chunk c into dst (one commit group, empty past the last layer) and
+// move c to the chunk after it.
+__device__ void issue(const DmmMlpArgs& a, Cursor& c, float* dst) {
+  if (c.l < a.n_layers) {
+    const int d_in = a.dims[c.l], d_out = a.dims[c.l + 1];
+    const int kc = min(chunk_rows(a, c.l), d_in - c.k0);
+    const float* src = a.W[c.l] + static_cast<size_t>(c.k0) * d_out;
+    const int n = kc * d_out;
+    int done = 0;
+    if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+      const int n16 = n / 4;
+      for (int i = threadIdx.x; i < n16; i += kThreads)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst + 4 * i)),
+                     "l"(src + 4 * i));
+      done = 4 * n16;
+    }
+    for (int i = done + threadIdx.x; i < n; i += kThreads)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst + i)),
+                   "l"(src + i));
+    c.k0 += kc;
+    if (c.k0 >= d_in) {
+      ++c.l;
+      c.k0 = 0;
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// RN weights of row kk from column j0 (zero past d_out); vec: the RN floats
+// are aligned for one vector load.
+template <bool BF16, int RN>
+__device__ __forceinline__ void load_w(const float* p, bool vec, int left, float (&w)[RN]) {
+  bool done = false;
+  if constexpr (RN >= 4) {
+    if (vec) {
+#pragma unroll
+      for (int c = 0; c < RN; c += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(p + c);
+        w[c] = v.x;
+        w[c + 1] = v.y;
+        w[c + 2] = v.z;
+        w[c + 3] = v.w;
+      }
+      done = true;
+    }
+  } else if constexpr (RN == 2) {
+    if (vec) {
+      const float2 v = *reinterpret_cast<const float2*>(p);
+      w[0] = v.x;
+      w[1] = v.y;
+      done = true;
+    }
+  }
+  if (!done) {
+#pragma unroll
+    for (int c = 0; c < RN; ++c) w[c] = c < left ? p[c] : 0.0f;
+  }
+#pragma unroll
+  for (int c = 0; c < RN; ++c) w[c] = operand<BF16>(w[c]);
+}
+
 // h[k][0..7] of the block's rows, rounded for the product.
 template <bool BF16>
 __device__ __forceinline__ void load_rows(const float* in, int k, float (&h)[kRows]) {
-  const float4 a = reinterpret_cast<const float4*>(in + k * kRows)[0];
-  const float4 c = reinterpret_cast<const float4*>(in + k * kRows)[1];
-  h[0] = operand<BF16>(a.x);
-  h[1] = operand<BF16>(a.y);
-  h[2] = operand<BF16>(a.z);
-  h[3] = operand<BF16>(a.w);
-  h[4] = operand<BF16>(c.x);
-  h[5] = operand<BF16>(c.y);
-  h[6] = operand<BF16>(c.z);
-  h[7] = operand<BF16>(c.w);
+#pragma unroll
+  for (int q = 0; q < kRows / 4; ++q) {
+    const float4 v = reinterpret_cast<const float4*>(in + k * kRows)[q];
+    h[4 * q] = operand<BF16>(v.x);
+    h[4 * q + 1] = operand<BF16>(v.y);
+    h[4 * q + 2] = operand<BF16>(v.z);
+    h[4 * q + 3] = operand<BF16>(v.w);
+  }
+}
+
+// Layer l on the block's rows: in [d_in][8] → nxt [d_out][8] (or out for
+// the last layer), its weights arriving chunk by chunk in stage[s].
+template <bool BF16, int RN>
+__device__ void mlp_layer(const DmmMlpArgs& a, int l, const float* in, float* nxt,
+                          float* const (&stage)[2], int& s, Cursor& cur, int row0, int nrows) {
+  const int d_in = a.dims[l], d_out = a.dims[l + 1];
+  const int ck = chunk_rows(a, l);
+  const int j0 = threadIdx.x * RN;
+  const bool active = j0 < d_out;
+  const bool vec = d_out % RN == 0;
+  const int left = d_out - j0;
+  float acc[kRows][RN];
+#pragma unroll 1
+  for (int k0 = 0; k0 < d_in; k0 += ck) {
+    issue(a, cur, stage[s ^ 1]);
+    asm volatile("cp.async.wait_group 1;\n" ::);
+    __syncthreads();
+    const float* ws = stage[s] + j0;
+    const int kc = min(ck, d_in - k0);
+    if (active) {
+      float h[kRows], w[RN];
+      int kk = 0;
+      if (k0 == 0) {  // each output starts from its first term
+        load_w<BF16, RN>(ws, vec, left, w);
+        load_rows<BF16>(in, 0, h);
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+#pragma unroll
+          for (int c = 0; c < RN; ++c) acc[r][c] = h[r] * w[c];
+        kk = 1;
+      }
+#pragma unroll 4
+      for (; kk < kc; ++kk) {
+        load_w<BF16, RN>(ws + kk * d_out, vec, left, w);
+        load_rows<BF16>(in, k0 + kk, h);
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+#pragma unroll
+          for (int c = 0; c < RN; ++c) acc[r][c] = acc[r][c] + h[r] * w[c];
+      }
+    }
+    __syncthreads();
+    s ^= 1;
+  }
+  if (!active) return;
+  const bool act = l >= 1 && l <= a.n_layers - 2;
+  const bool last = l == a.n_layers - 1;
+#pragma unroll
+  for (int c = 0; c < RN; ++c) {
+    const int j = j0 + c;
+    if (j >= d_out) break;
+    const float bj = __ldg(a.b[l] + j);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      float v = acc[r][c] + bj;
+      if (act) v = tanhf(v);
+      if (!last) {
+        nxt[j * kRows + r] = v;
+      } else if (r < nrows) {
+        a.out[static_cast<size_t>(row0 + r) * d_out + j] = v;
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ int layer_rn(int d_out) {
+  int rn = 1;
+  while (rn * kThreads < d_out) rn *= 2;
+  return rn;
 }
 
 template <bool BF16>
-__global__ void __launch_bounds__(kThreads) fused_mlp_kernel(const __grid_constant__ DmmMlpArgs a) {
+__global__ void __launch_bounds__(kThreads, 1) fused_mlp_kernel(const __grid_constant__ DmmMlpArgs a) {
   extern __shared__ float4 smem4[];
   float* buf0 = reinterpret_cast<float*>(smem4);
   float* buf1 = buf0 + kRows * a.d_max;
+  float* const stage[2] = {buf1 + kRows * a.d_max, buf1 + kRows * a.d_max + a.stage_floats};
   const int row0 = blockIdx.x * kRows;
   const int nrows = min(kRows, a.K - row0);
+
+  Cursor cur{0, 0};
+  issue(a, cur, stage[0]);
 
   // the block's rows, transposed to [feature][row]; rows past K are zero
   const int f0 = a.dims[0];
@@ -103,44 +262,18 @@ __global__ void __launch_bounds__(kThreads) fused_mlp_kernel(const __grid_consta
     const int r = i / f0, k = i - r * f0;
     buf0[k * kRows + r] = r < nrows ? a.x[static_cast<size_t>(row0 + r) * f0 + k] : 0.0f;
   }
-  __syncthreads();
 
   float* in = buf0;
   float* nxt = buf1;
+  int s = 0;
 #pragma unroll 1
   for (int l = 0; l < a.n_layers; ++l) {
-    const int d_in = a.dims[l], d_out = a.dims[l + 1];
-    const float* __restrict__ W = a.W[l];
-    const float* __restrict__ bias = a.b[l];
-    const bool act = l >= 1 && l <= a.n_layers - 2;
-    const bool last = l == a.n_layers - 1;
-#pragma unroll 1
-    for (int j = threadIdx.x; j < d_out; j += kThreads) {
-      float h[kRows], acc[kRows];
-      float w = operand<BF16>(__ldg(W + j));
-      load_rows<BF16>(in, 0, h);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = h[r] * w;
-#pragma unroll 4
-      for (int k = 1; k < d_in; ++k) {
-        w = operand<BF16>(__ldg(W + static_cast<size_t>(k) * d_out + j));
-        load_rows<BF16>(in, k, h);
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[r] = acc[r] + h[r] * w;
-      }
-      const float bj = __ldg(bias + j);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        float v = acc[r] + bj;
-        if (act) v = tanhf(v);
-        if (!last) {
-          nxt[j * kRows + r] = v;
-        } else if (r < nrows) {
-          a.out[static_cast<size_t>(row0 + r) * d_out + j] = v;
-        }
-      }
+    switch (layer_rn(a.dims[l + 1])) {
+      case 1: mlp_layer<BF16, 1>(a, l, in, nxt, stage, s, cur, row0, nrows); break;
+      case 2: mlp_layer<BF16, 2>(a, l, in, nxt, stage, s, cur, row0, nrows); break;
+      case 4: mlp_layer<BF16, 4>(a, l, in, nxt, stage, s, cur, row0, nrows); break;
+      default: mlp_layer<BF16, kMaxRN>(a, l, in, nxt, stage, s, cur, row0, nrows); break;
     }
-    __syncthreads();
     float* t = in;
     in = nxt;
     nxt = t;
@@ -167,15 +300,22 @@ extern "C" {
 int dmm_mlp_args_size() { return static_cast<int>(sizeof(DmmMlpArgs)); }
 
 // out = chain(x). Returns cudaErrorInvalidValue without launching on a shape
-// it does not take (no layer, more than DMM_MLP_MAX_LAYERS, K < 1, a width
-// < 1 or activations over the shared-memory limit).
+// it does not take: no layer or more than DMM_MLP_MAX_LAYERS, K < 1, a width
+// < 1 or over d_max or over 256·kMaxRN, a stage that does not hold one weight
+// row of every layer, or buffers over the shared-memory limit.
 int dmm_fused_mlp(const DmmMlpArgs* args, void* stream) {
   const DmmMlpArgs a = *args;
-  if (a.n_layers < 1 || a.n_layers > DMM_MLP_MAX_LAYERS || a.K < 1)
+  if (a.n_layers < 1 || a.n_layers > DMM_MLP_MAX_LAYERS || a.K < 1 || a.stage_floats < 4 ||
+      a.stage_floats % 4)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int max_width = kThreads * kMaxRN;
   for (int l = 0; l <= a.n_layers; ++l)
     if (a.dims[l] < 1 || a.dims[l] > a.d_max) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = 2 * sizeof(float) * kRows * static_cast<size_t>(a.d_max);
+  for (int l = 1; l <= a.n_layers; ++l)
+    if (a.dims[l] > max_width || a.dims[l] > a.stage_floats)
+      return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(float) * (2 * static_cast<size_t>(kRows) * a.d_max +
+                                       2 * static_cast<size_t>(a.stage_floats));
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(a.bf16 ? launch_mlp<true>(a, smem, s) : launch_mlp<false>(a, smem, s));

@@ -17,8 +17,11 @@ Counterpart of ``dnn_mppi_mpc_tpu/ops/pallas/mlp_step.py``:
 (float32 sums and bias), as the JAX kernel's option does; any other dtype
 than float32 or bfloat16 raises. The TPU knobs ``block_rows`` and
 ``interpret`` are not ported: the row tile is the kernel's own (8 rows a
-block), and no feature is padded. The kernel has no backward, so inputs that
-require grad raise ``ValueError``.
+block), and no feature is padded. The kernel stages each layer's weights in shared
+memory and keeps the float32 products off the tensor cores, each output
+summed by one thread in feature order, so it equals the plain version but
+for tanhf. The kernel has no backward, so inputs that require grad raise
+``ValueError``.
 """
 
 from __future__ import annotations
@@ -36,6 +39,37 @@ from .common import MAX_SMEM_OPT_IN, on_cuda
 
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 ROWS = 8  # kRows in csrc/mlp_step.cu: the rows one block owns
+THREADS = 256  # kThreads
+MAX_RN = 8  # kMaxRN: the most columns a thread owns
+STAGE_FLOATS = 16384  # a weight stage: 64 KB, two of them
+
+
+def _layer_rn(width: int) -> int:
+    """The columns a thread owns in a layer of ``width`` outputs: the
+    smallest power of two with THREADS·RN ≥ width."""
+    rn = 1
+    while rn * THREADS < width:
+        rn *= 2
+    return rn
+
+
+def mlp_launch_plan(dims: Sequence[int]) -> tuple[int, int]:
+    """(floats a weight stage, shared-memory bytes) of the kernel for the
+    chain's widths ``dims`` [F0, d_1, …, d_L]: two 8-row activation buffers
+    of the widest width and two weight stages of at most STAGE_FLOATS.
+    Raises ``ValueError`` on a layer wider than THREADS·MAX_RN or widths whose
+    activations leave no room for a stage of one weight row."""
+    outs = list(dims[1:])
+    if max(_layer_rn(d) for d in outs) > MAX_RN:
+        raise ValueError(f"the fused MLP kernel takes layers up to {THREADS * MAX_RN} wide, got "
+                         f"{max(outs)}")
+    act = 2 * 4 * ROWS * max(dims)
+    stage = min(STAGE_FLOATS, (MAX_SMEM_OPT_IN - act) // 8 // 4 * 4)
+    if stage < max(outs):
+        raise ValueError(f"widths {list(dims)} need {act} bytes of shared memory for the "
+                         f"activations, leaving no room for two {max(outs)}-float weight rows "
+                         f"under the {MAX_SMEM_OPT_IN}-byte limit")
+    return stage, act + 8 * stage
 
 
 def _operand(t: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
@@ -103,8 +137,8 @@ def fused_mlp_apply(feats: torch.Tensor, weights: Sequence[torch.Tensor],
     (d_{l+1},) — linear, tanh after layers 1 … L−2, linear — to ``feats (K,
     F0)``: (K, d_L) float32. On CUDA tensors one launch, the activations
     never leaving the chip; every tensor must then be contiguous float32 on
-    one device, with at most 16 layers and every width at most 3 632 (two
-    8-row activation buffers in 227 KB of shared memory)."""
+    one device, with at most 16 layers, every layer at most 2 048 wide and
+    the widths within the shared memory (:func:`mlp_launch_plan`)."""
     dims = _check(feats, weights, biases, compute_dtype)
     if not on_cuda(feats, **{f"weights[{i}]": w for i, w in enumerate(weights)},
                    **{f"biases[{i}]": b for i, b in enumerate(biases)}):
@@ -117,14 +151,12 @@ def fused_mlp_apply(feats: torch.Tensor, weights: Sequence[torch.Tensor],
     n = len(weights)
     if n > MLP_MAX_LAYERS:
         raise ValueError(f"the fused MLP kernel takes at most {MLP_MAX_LAYERS} layers, got {n}")
-    d_max = max(dims)
-    if 2 * 4 * ROWS * d_max > MAX_SMEM_OPT_IN:
-        raise ValueError(f"a width of {d_max} needs {2 * 4 * ROWS * d_max} bytes of shared "
-                         f"memory for the activations, over the {MAX_SMEM_OPT_IN}-byte limit")
+    stage, _ = mlp_launch_plan(dims)
     K = feats.shape[0]
     out = torch.empty((K, dims[-1]), dtype=torch.float32, device=feats.device)
     args = DmmMlpArgs(x=feats.data_ptr(), out=out.data_ptr(), n_layers=n, K=K,
-                      bf16=int(compute_dtype == torch.bfloat16), d_max=d_max)
+                      bf16=int(compute_dtype == torch.bfloat16), d_max=max(dims),
+                      stage_floats=stage)
     for i in range(n):
         args.W[i] = weights[i].data_ptr()
         args.b[i] = biases[i].data_ptr()
@@ -220,9 +252,13 @@ def make_fused_residual_step(analytic: Callable[[torch.Tensor, torch.Tensor], to
 
 __all__ = [
     "COMPUTE_DTYPES",
+    "MAX_RN",
     "ROWS",
+    "STAGE_FLOATS",
+    "THREADS",
     "fold_residual_mlp",
     "fused_mlp_apply",
     "fused_mlp_apply_plain",
     "make_fused_residual_step",
+    "mlp_launch_plan",
 ]

@@ -14,6 +14,8 @@ CPU: the cases of tests/test_mlp_step.py with its tolerances (rtol 3e-5, atol
 * ``make_fused_residual_step`` against JAX's Euler residual dynamics over a
   (2, 24, ·) leading batch and with ``residual_scale=1``; the shape and
   grad checks;
+* the kernel's launch plan (rows a block, the weight stage, shared memory)
+  and its raises on widths it does not take;
 * one MPPI tick with injected ε, the fused step against JAX ``mppi_step``;
   ``presets.dnn_mppi`` at both residual levels, one tick against the JAX
   preset with the same ε (JAX in float32 here: rtol 1e-3, atol 1e-4, the
@@ -150,6 +152,27 @@ def test_fused_mlp_apply_checks():
         kern.fused_mlp_apply(torch.zeros(4, 5, requires_grad=True), ws, bs)
 
 
+@pytest.mark.parametrize("dims,stage,smem", [
+    ((5, 128, 128, 3), 16384, 2 * 4 * 8 * 128 + 8 * 16384),  # the suite net
+    ((5, 512, 512, 512, 3), 16384, 2 * 4 * 8 * 512 + 8 * 16384),  # the reference net
+    ((5, 96, 200, 3), 16384, 2 * 4 * 8 * 200 + 8 * 16384),  # ragged widths
+    ((5, 2048, 3), 12672, 2 * 4 * 8 * 2048 + 8 * 12672),  # the widest layer it takes
+])
+def test_mlp_launch_plan(dims, stage, smem):
+    got = kern.mlp_step.mlp_launch_plan(dims)
+    assert got == (stage, smem)
+    assert smem <= kern.common.MAX_SMEM_OPT_IN and stage % 4 == 0 and stage >= max(dims[1:])
+
+
+def test_mlp_launch_plan_raises():
+    with pytest.raises(ValueError, match="2048 wide"):
+        kern.mlp_step.mlp_launch_plan((5, 2049, 3))
+    with pytest.raises(ValueError, match="no room"):  # a 4 000-wide input fills the memory
+        kern.mlp_step.mlp_launch_plan((4000, 512, 3))
+    assert [kern.mlp_step._layer_rn(w) for w in (1, 256, 257, 512, 513, 1024, 2048)] == [
+        1, 1, 2, 2, 4, 4, 8]
+
+
 def _tick_problem(K=32, T=6):
     cfg = dict(num_samples=K, horizon=T, dim_x=3, dim_u=2, dt=DT, lam=1.0, exploration=0.0,
                filter_window=3, waypoint_search_len=5)
@@ -224,3 +247,19 @@ def test_fused_mlp_kernel_on_card():
     got = kern.fused_mlp_apply(x.to(dev), [w.to(dev) for w in ws], [b.to(dev) for b in bs])
     want = kern.fused_mlp_apply_plain(x.to(dev), [w.to(dev) for w in ws], [b.to(dev) for b in bs])
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,K", [((5, 96, 200, 3), 777), ((5, 512, 512, 512, 3), 300)])
+def test_fused_mlp_kernel_on_card_ragged_and_wide(dims, K):
+    """Widths that are no multiple of the register tile or the 16-byte copy,
+    an odd K, and the 512-wide net's two columns a thread."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator().manual_seed(1)
+    dev = torch.device("cuda")
+    ws = [(torch.randn(a, b, generator=g) / a ** 0.5).to(dev) for a, b in zip(dims, dims[1:])]
+    bs = [(0.1 * torch.randn(b, generator=g)).to(dev) for b in dims[1:]]
+    x = torch.randn(K, dims[0], generator=g).to(dev)
+    torch.testing.assert_close(kern.fused_mlp_apply(x, ws, bs),
+                               kern.fused_mlp_apply_plain(x, ws, bs), rtol=1e-5, atol=1e-6)
