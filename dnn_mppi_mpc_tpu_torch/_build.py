@@ -127,17 +127,23 @@ class DmmGenericArgs(ctypes.Structure):
     ] + [("c", ctypes.c_float * GENERIC_CONSTANTS)]
 
 
+# kNumQPTables in csrc/riccati_qp.cu: the QP's stage tables and dx0
+QP_TABLES = 15
+
+
 class DmmQPArgs(ctypes.Structure):
     """ctypes mirror of ``struct DmmQPArgs`` in csrc/riccati_qp.cu."""
 
     _fields_ = [
-        (name, ctypes.c_void_p)
-        for name in (
-            "mus", "misc", "A", "B", "c", "Q", "qx", "R", "ru", "lbx", "ubx", "lbu", "ubu",
-            "Jh", "h0", "S", "dx0", "dX", "dU", "kkt", "K", "k", "ddX", "ddU", "cres",
-        )
-    ] + [
-        (name, ctypes.c_int) for name in ("Bn", "N", "nx", "nu", "n_h", "num_iters", "has_S")
+        ("mus", ctypes.c_void_p),
+        ("misc", ctypes.c_void_p),
+        ("tab", ctypes.c_void_p * QP_TABLES),
+        ("b_stride", ctypes.c_longlong * QP_TABLES),
+        ("s_stride", ctypes.c_longlong * QP_TABLES),
+        ("r_stride", ctypes.c_longlong * QP_TABLES),
+    ] + [(name, ctypes.c_void_p) for name in ("dX", "dU", "kkt")] + [
+        (name, ctypes.c_int)
+        for name in ("Bn", "N", "nx", "nu", "n_h", "num_iters", "has_S", "stage_floats")
     ]
 
 
@@ -295,6 +301,7 @@ __all__ = [
     "CHAIN_MAX_LAYERS",
     "MLP_MAX_LAYERS",
     "OUTLINE_POINTS",
+    "QP_TABLES",
     "DmmArgs",
     "DmmBicycleArgs",
     "DmmChainArgs",

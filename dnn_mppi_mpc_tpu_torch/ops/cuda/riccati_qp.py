@@ -3,14 +3,34 @@ linearization in one launch.
 
 Counterpart of ``dnn_mppi_mpc_tpu/ops/pallas/riccati_qp.py``. Both TPU
 kernels map to one CUDA kernel, ``dmm_barrier_qp`` (csrc/riccati_qp.cu), with
-one thread per problem:
+one warp per problem:
 
 * :func:`fused_barrier_qp_solve` (``:493 pallas_barrier_qp_solve``) solves
-  one problem, the SQP tick's QP: the kernel at B = 1;
+  one problem, the SQP tick's QP: the kernel at B = 1, one warp;
 * :func:`batched_fused_barrier_qp_solve` (``:582
   pallas_batched_barrier_qp_solve`` and ``:706``'s batching rule) solves B
-  independent problems of a fleet in one launch; a leaf given without the
-  leading B is shared by all members.
+  independent problems of a fleet in one launch, a block (one warp) a
+  problem; a leaf given without the leading B is shared by all members.
+
+The warp copies its problem's tables into shared memory once and keeps the
+Newton iterate, the step, the gains and the folded stage terms there: the
+stage-parallel parts of a Newton iteration (the barrier folds, the dynamics
+residual, the step bound and the update) run one stage a lane, the Riccati
+recursion's products and back substitution are spread over the lanes with
+shuffles, and only the forward sweep and the final roll run on one lane.
+The tables are read where they lie, problem-major (:func:`kernel_tables`):
+a leaf whose last dimension is contiguous is passed as it is, with its
+problem, stage and row strides (0 for a shared leaf or a stage-invariant
+one; nx + nu for the linearization's A and B, column blocks of one
+Jacobian), and the outputs are written (B, N+1, nx), (B, N, nu) and (B,).
+
+The horizon is bounded by shared memory: a problem takes (N + 1) stage
+records of :func:`qp_stage_floats` floats, and one block may hold 227 KB
+(232 448 bytes), so N ≤ :func:`qp_max_horizon` (nx, nu, n_h, S): 234 at
+(5, 4) with two h rows and S, 637 at (3, 2) with two h rows, 1 416 at
+(2, 1) without; every instantiated (nx, nu) takes N = 100 with two h rows
+and S. A longer horizon raises ``ValueError`` before the launch, naming the
+largest N.
 
 On CUDA tensors each launches the kernel; on CPU tensors each runs its plain
 version, the same algorithm in plain PyTorch in the kernel's order of
@@ -35,9 +55,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..._build import DmmQPArgs, launch
+from ..._build import QP_TABLES, DmmQPArgs, launch
 from ..sampling import small_lu_solve
-from .common import on_cuda
+from .common import MAX_SMEM_OPT_IN, on_cuda
 
 # (nx, nu) pairs csrc/riccati_qp.cu instantiates
 SUPPORTED_DIMS = tuple((nx, nu) for nx in range(2, 6) for nu in range(1, min(nx, 4) + 1))
@@ -45,6 +65,10 @@ _INF = 3.0e38
 # the BoxedQPData leaves (solvers/qp.py) and each one's rank without a batch
 QP_LEAF_NDIM = dict(A=3, B=3, c=2, Q=3, qx_base=2, R=3, ru_base=2, lbx=2, ubx=2, lbu=2, ubu=2,
                     Jh=3, h0=2, S=3)
+# the kernel's stage tables, in the order of DmmQPArgs::tab (csrc/riccati_qp.cu);
+# dx0 follows them
+TABLES = ("A", "B", "c", "Q", "qx_base", "R", "ru_base", "lbx", "ubx", "lbu", "ubu", "Jh", "h0",
+          "S")
 
 
 @lru_cache(maxsize=None)
@@ -317,43 +341,90 @@ batched_fused_barrier_qp_solve_plain.calls = 0
 # ---------------------------------------------------------------------------
 
 
-def _launch(leaves, dx0, B, num_iters, mu0, kappa, delta, stiffness, h_stiffness, h_slope,
-            layout):
-    """Launch ``dmm_barrier_qp`` on (B, …) leaves; ``layout`` turns a (B,
-    rows, …) leaf into its contiguous (rows, row·col, B) table. Returns the
-    (N+1, nx, B), (N, nu, B) and (B,) outputs."""
+def qp_stage_floats(nx: int, nu: int, n_h: int, has_S: bool) -> int:
+    """Floats of one stage record in the kernel's shared memory (``Rec`` and
+    ``stage_floats`` in csrc/riccati_qp.cu): the tables (A, B, c, Q, qx, R,
+    ru, the four margins), the iterate, the step, the gains K and k, the
+    residual, the folded Qxx, q, Ruu and r_u, then the h rows and S; rounded
+    up to an odd count so that 32 lanes on 32 stages hit 32 banks."""
+    fixed = 3 * nx * nx + 8 * nx + 2 * nx * nu + 2 * nu * nu + 7 * nu
+    return (fixed + n_h * (nx + 1) + (nu * nx if has_S else 0)) | 1
+
+
+def qp_smem_bytes(N: int, nx: int, nu: int, n_h: int, has_S: bool) -> int:
+    """Dynamic shared memory of one block (one problem)."""
+    return 4 * (N + 1) * qp_stage_floats(nx, nu, n_h, has_S)
+
+
+def qp_max_horizon(nx: int, nu: int, n_h: int, has_S: bool) -> int:
+    """The largest N whose problem fits in one block's shared memory."""
+    return MAX_SMEM_OPT_IN // (4 * qp_stage_floats(nx, nu, n_h, has_S)) - 1
+
+
+def check_horizon(N: int, nx: int, nu: int, n_h: int, has_S: bool) -> None:
+    """Raise ``ValueError`` unless one problem of horizon N fits in a block's
+    shared memory (the check before every launch)."""
+    need = qp_smem_bytes(N, nx, nu, n_h, has_S)
+    if need > MAX_SMEM_OPT_IN:
+        raise ValueError(
+            f"the fused QP kernel keeps a problem's N + 1 stage records in shared memory: "
+            f"N = {N} at (nx, nu) = ({nx}, {nu}) with n_h = {n_h}{' and S' if has_S else ''} "
+            f"needs {need} bytes, over the {MAX_SMEM_OPT_IN} a block may have; the largest N "
+            f"for this shape is {qp_max_horizon(nx, nu, n_h, has_S)}")
+
+
+def _table(t: torch.Tensor):
+    # the kernel reads a stage as rows of contiguous elements: a leaf whose
+    # last dimension is strided (a transposed one) is copied, any other passed
+    # as it lies
+    if t.shape[-1] > 1 and t.stride(-1) != 1:
+        t = t.contiguous()
+    return t, t.stride(0), t.stride(1), t.stride(2) if t.dim() == 4 else 0
+
+
+def kernel_tables(leaves: dict, dx0: torch.Tensor) -> list:
+    """The kernel's tables of (B, …) leaves (``batch_leaves``) and dx0 (B,
+    nx): for each of ``TABLES`` and then dx0, (tensor, problem stride, stage
+    stride, row stride) in floats, or (None, 0, 0, 0) for an absent leaf.
+    Element (row, col) of problem b's stage i of a table lies b·(problem
+    stride) + i·(stage stride) + row·(row stride) + col floats into the
+    tensor: problem-major. A leaf is passed as it lies, a view and no copy,
+    wherever its last dimension is contiguous: contiguous leaves, leaves
+    shared by all problems (problem stride 0), stage-invariant ones (stage
+    stride 0, the fleet's R) and column blocks of a wider matrix (the
+    linearization's A and B, row stride nx + nu)."""
+    out = [(None, 0, 0, 0) if leaves[n] is None else _table(leaves[n]) for n in TABLES]
+    out.append(_table(dx0[:, None]))
+    return out
+
+
+def _launch(leaves, dx0, B, num_iters, mu0, kappa, delta, stiffness, h_stiffness, h_slope):
+    """Launch ``dmm_barrier_qp`` on (B, …) leaves, B blocks of one warp;
+    returns the (B, N+1, nx), (B, N, nu) and (B,) outputs."""
     A = leaves["A"]
     N, nx, nu = A.shape[1], A.shape[2], leaves["B"].shape[3]
     n_h = 0 if leaves["Jh"] is None else leaves["Jh"].shape[2]
+    has_S = leaves["S"] is not None
     _check_dims(N, nx, nu, n_h, leaves, B, num_iters)
+    check_horizon(N, nx, nu, n_h, has_S)
     dev = dx0.device
     mus, misc = qp_schedule(num_iters, mu0, kappa, delta, stiffness, h_stiffness, h_slope, dev)
-    tabs = {n: None if t is None else layout(t) for n, t in leaves.items()}
-    x0 = layout(dx0[:, None])
-    dX = torch.empty((N + 1, nx, B), dtype=torch.float32, device=dev)
-    dU = torch.empty((N, nu, B), dtype=torch.float32, device=dev)
+    tabs = kernel_tables(leaves, dx0)
+    dX = torch.empty((B, N + 1, nx), dtype=torch.float32, device=dev)
+    dU = torch.empty((B, N, nu), dtype=torch.float32, device=dev)
     kkt = torch.empty((B,), dtype=torch.float32, device=dev)
-    sizes = (N * nu * nx, N * nu, (N + 1) * nx, N * nu, N * nx)
-    scratch = torch.empty((sum(sizes) * B,), dtype=torch.float32, device=dev)
-    ptrs, off = [], 0
-    for n in sizes:
-        ptrs.append(scratch.data_ptr() + 4 * off * B)
-        off += n
-
-    def ptr(t):
-        return 0 if t is None else t.data_ptr()
-
     args = DmmQPArgs(
-        mus=mus.data_ptr(), misc=misc.data_ptr(), A=ptr(tabs["A"]), B=ptr(tabs["B"]),
-        c=ptr(tabs["c"]), Q=ptr(tabs["Q"]), qx=ptr(tabs["qx_base"]), R=ptr(tabs["R"]),
-        ru=ptr(tabs["ru_base"]), lbx=ptr(tabs["lbx"]), ubx=ptr(tabs["ubx"]),
-        lbu=ptr(tabs["lbu"]), ubu=ptr(tabs["ubu"]), Jh=ptr(tabs["Jh"]), h0=ptr(tabs["h0"]),
-        S=ptr(tabs["S"]), dx0=x0.data_ptr(), dX=dX.data_ptr(), dU=dU.data_ptr(),
-        kkt=kkt.data_ptr(), K=ptrs[0], k=ptrs[1], ddX=ptrs[2], ddU=ptrs[3], cres=ptrs[4],
-        Bn=B, N=N, nx=nx, nu=nu, n_h=n_h, num_iters=num_iters, has_S=int(tabs["S"] is not None),
+        mus=mus.data_ptr(), misc=misc.data_ptr(), dX=dX.data_ptr(), dU=dU.data_ptr(),
+        kkt=kkt.data_ptr(), Bn=B, N=N, nx=nx, nu=nu, n_h=n_h, num_iters=num_iters,
+        has_S=int(has_S), stage_floats=qp_stage_floats(nx, nu, n_h, has_S),
     )
-    # the tables are freed when this returns, to the caching allocator, which
-    # hands their memory only to work queued after this launch on its stream
+    assert len(tabs) == QP_TABLES
+    for j, (t, b_stride, s_stride, r_stride) in enumerate(tabs):
+        args.tab[j] = None if t is None else t.data_ptr()
+        args.b_stride[j], args.s_stride[j], args.r_stride[j] = b_stride, s_stride, r_stride
+    # a table copied above is freed when this returns, to the caching
+    # allocator, which hands its memory only to work queued after this launch
+    # on its stream
     launch("dmm_barrier_qp", args, dev)
     return dX, dU, kkt
 
@@ -370,7 +441,8 @@ def fused_barrier_qp_solve(qp, dx0: torch.Tensor, num_iters: int = 12, mu0: floa
     without a batch dimension, dx0 (nx,)) in one launch: (δX (N+1, nx),
     δU (N, nu), kkt ()), float32. ``stiffness`` defaults to 1/δ² and
     ``h_stiffness`` to ``stiffness``; ``h_slope`` is the L1 slope of the
-    soft h rows."""
+    soft h rows. N is bounded by shared memory (:func:`qp_max_horizon`;
+    ``ValueError`` beyond it)."""
     _reject_grad(qp, dx0)
     if dx0.dim() != 1 or qp.A.dim() != 3:
         raise ValueError("fused_barrier_qp_solve takes one problem (dx0 (nx,), A (N, nx, nx)); "
@@ -379,11 +451,10 @@ def fused_barrier_qp_solve(qp, dx0: torch.Tensor, num_iters: int = 12, mu0: floa
         return fused_barrier_qp_solve_plain(qp, dx0, num_iters, mu0, kappa, delta, stiffness,
                                             h_stiffness, h_slope)
     leaves, x0, _, _ = batch_leaves(qp, dx0, torch.float32)
-    # with B = 1 the (stage, row·col, B) table is the leaf's own memory
     dX, dU, kkt = _launch(leaves, x0, 1, num_iters, mu0, kappa, delta, stiffness, h_stiffness,
-                          h_slope, lambda t: t[0].contiguous())
+                          h_slope)
     fused_barrier_qp_solve.launches += 1
-    return dX[..., 0], dU[..., 0], kkt[0]
+    return dX[0], dU[0], kkt[0]
 
 
 fused_barrier_qp_solve.launches = 0
@@ -393,23 +464,20 @@ def batched_fused_barrier_qp_solve(qp, dx0: torch.Tensor, num_iters: int = 12,
                                    mu0: float = 1.0e-1, kappa: float = 0.35,
                                    delta: float = 1.0e-3, stiffness: Optional[float] = None,
                                    h_stiffness: Optional[float] = None, h_slope: float = 0.0):
-    """Solve B independent relaxed-barrier QPs in one launch, one thread per
+    """Solve B independent relaxed-barrier QPs in one launch, one warp per
     problem: (δX (B, N+1, nx), δU (B, N, nu), kkt (B,)), float32. Every leaf
     (and dx0) carries a leading B or is shared by all members; member b's
-    result is the per-problem solve of member b's problem."""
+    result is the per-problem solve of member b's problem. N is bounded by
+    shared memory (:func:`qp_max_horizon`; ``ValueError`` beyond it)."""
     _reject_grad(qp, dx0)
     if not _on_card(qp, dx0):
         return batched_fused_barrier_qp_solve_plain(qp, dx0, num_iters, mu0, kappa, delta,
                                                     stiffness, h_stiffness, h_slope)
     leaves, x0, B, _ = batch_leaves(qp, dx0, torch.float32)
-
-    def layout(t):  # (B, rows, …) -> (rows, row·col, B)
-        return t.reshape(B, t.shape[1], -1).permute(1, 2, 0).contiguous()
-
     dX, dU, kkt = _launch(leaves, x0, B, num_iters, mu0, kappa, delta, stiffness, h_stiffness,
-                          h_slope, layout)
+                          h_slope)
     batched_fused_barrier_qp_solve.launches += 1
-    return dX.permute(2, 0, 1), dU.permute(2, 0, 1), kkt
+    return dX, dU, kkt
 
 
 batched_fused_barrier_qp_solve.launches = 0
@@ -417,10 +485,16 @@ batched_fused_barrier_qp_solve.launches = 0
 __all__ = [
     "QP_LEAF_NDIM",
     "SUPPORTED_DIMS",
+    "TABLES",
     "batch_leaves",
     "batched_fused_barrier_qp_solve",
     "batched_fused_barrier_qp_solve_plain",
+    "check_horizon",
     "fused_barrier_qp_solve",
     "fused_barrier_qp_solve_plain",
+    "kernel_tables",
+    "qp_max_horizon",
     "qp_schedule",
+    "qp_smem_bytes",
+    "qp_stage_floats",
 ]

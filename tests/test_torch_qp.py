@@ -333,8 +333,9 @@ def test_sqp_config_rejects_jax_backend_names(name, port):
 @pytest.mark.cuda
 def test_fused_qp_kernel_on_the_card():
     """On the card: both wrappers launch the kernel and equal their plain
-    versions within chip_smoke.py's TOL (run there: this machine has no card
-    to collect it on with the JAX conftest)."""
+    versions within chip_smoke.py's TOL, the batched one at B = 130 also
+    member by member against the per-problem kernel (run there: this
+    machine has no card to collect it on with the JAX conftest)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     leaves, dx0 = _case(2, True, 7, 30, 3, 2)
@@ -345,3 +346,18 @@ def test_fused_qp_kernel_on_the_card():
     want = kern.fused_barrier_qp_solve_plain(qp, x0)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+
+    B = 130
+    rng = np.random.default_rng(8)
+    stacked = _stack([_random_qp_np(rng, N=30, nx=3, nu=2, n_h=1) for _ in range(B)])
+    qp = tqp.BoxedQPData(*(None if a is None else torch.tensor(a, device=dev) for a in stacked))
+    x0 = torch.tensor((0.2 * rng.normal(size=(B, 3))).astype(np.float32), device=dev)
+    got = kern.batched_fused_barrier_qp_solve(qp, x0)
+    want = kern.batched_fused_barrier_qp_solve_plain(qp, x0)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+    for b in (0, 127, 128, 129):
+        one = kern.fused_barrier_qp_solve(
+            tqp.BoxedQPData(*(None if t is None else t[b] for t in qp)), x0[b])
+        for g, w in zip(got, one):
+            torch.testing.assert_close(g[b], w, rtol=0, atol=0)
