@@ -51,14 +51,14 @@ class DmmArgs(ctypes.Structure):
         for name in (
             "seed", "u", "a", "chol", "x0", "window", "stage_w", "term_w",
             "u_min", "u_max", "obstacles", "control_w", "filter_t", "eps",
-            "S", "w", "w_eps", "stats", "u_new", "u_shift", "finite",
+            "S", "w", "w_eps", "stats", "u_new", "u_shift", "finite", "scratch",
         )
     ] + [
         (name, ctypes.c_int)
         for name in (
             "K", "T", "W", "n_obs", "k_blk", "eps_mode", "iso_xy",
             "last_only", "obs_mode", "drift", "fuse_epilogue", "block_offset",
-            "s_only",
+            "s_only", "scratch_floats",
         )
     ] + [
         (name, ctypes.c_float)
@@ -270,6 +270,8 @@ def load_kernels() -> ctypes.CDLL:
                lib.dmm_fused_mlp, lib.dmm_resnet_chain):
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.dmm_chunk_scratch_floats.argtypes = [ctypes.c_int] * 3
+    lib.dmm_chunk_scratch_floats.restype = ctypes.c_longlong
     for struct, size_fn in ((DmmArgs, lib.dmm_args_size),
                             (DmmFleetArgs, lib.dmm_fleet_args_size),
                             (DmmBicycleArgs, lib.dmm_bicycle_args_size),

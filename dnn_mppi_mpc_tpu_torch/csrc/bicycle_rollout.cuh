@@ -11,14 +11,22 @@
 // pose (×penalty), the energy row a_t·v, SUM accumulation and the terminal
 // cost.
 //
-// Layout: one thread per sample k carries (x, y, yaw, v, S) in registers
-// through the T loop, and the sin/cos of its yaw: the post-step values of
-// step t (which the outline needs) are the pre-step values of step t + 1, so
-// each step calls sincosf once. ε is read from (T, K, 2) so neighbouring
-// threads read neighbouring addresses. The library is built with
-// -fmad=false, so every a*b+c rounds twice, like the plain PyTorch version.
+// Layout: a group of G consecutive lanes of a warp (G = 8 or 16, a template
+// constant) shares one sample k. Every lane of the group runs the dynamics
+// on the same inputs, so every lane holds the same (x, y, yaw, v, S) and the
+// sin/cos of the yaw, bit for bit: the post-step values of step t (which the
+// outline needs) are the pre-step values of step t + 1, so each step calls
+// sincosf once. The window search is split: lane j keeps the running min of
+// rows i ≡ j (mod G), then log2 G xor-shuffle rounds merge the partials into
+// the sequential scan's row (below); the 9 outline points are dealt over
+// the lanes (each tested against every obstacle) and ORed by a ballot. With hash ε, lane j draws the steps
+// t ≡ j (mod G) of its sample (the stream's counters unchanged) and hands
+// each out by shuffle at its step. ε is read from and written to (T, K, 2).
+// The library is built with -fmad=false, so every a*b+c rounds twice, like
+// the plain PyTorch version.
 #pragma once
 
+#include <cmath>
 #include <cstdint>
 
 #include "hash_normal.cuh"
@@ -65,72 +73,109 @@ __device__ __forceinline__ float dmm_bicycle_clip(float v, float lo, float hi) {
   return v > hi ? hi : v;
 }
 
-// Stage cost at pose (x, y, yaw, v) with sin/cos (s, c) of yaw: tracking
-// against the window's running-min row, plus the outline test. `win` is the
-// (W, 4) window in shared memory, one float4 per row.
-template <bool ISO>
-__device__ __forceinline__ float dmm_bicycle_cost(const DmmBicycleArgs& p, float x, float y,
-                                                  float yaw, float v, float c, float s,
-                                                  const float4& wgt, const float4* win,
-                                                  const float* obs) {
-  const float two_pi = 6.28318530717958647692f;  // float32(2π)
-  // running min over the window, first-strict-< rule
-  float4 row = win[0];
-  float dx = x - row.x;
-  float dy = y - row.y;
-  float dmin = dx * dx + dy * dy;
-  float rx = row.x, ry = row.y, ryaw = row.z, rv = row.w;
-  for (int i = 1; i < p.W; ++i) {
-    row = win[i];
-    dx = x - row.x;
-    dy = y - row.y;
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// The window row of the running min over the whole window, from lane
+// `lane`'s running min over rows i ≡ lane (mod G): the lane of row 0 starts
+// from row 0's d, NaN or not, every other lane from (+∞, W), and a row
+// replaces the partial only by a strict <. Rounds of xor shuffles then
+// merge (d, row): the smaller d wins, on a tie the smaller row, and a NaN
+// partial (only row 0's can be one) wins over all. That is the row of the
+// sequential scan (row 0 unless a later row is strictly less than all
+// before it), so every lane of the group returns it, with its d.
+template <int G>
+__device__ __forceinline__ int dmm_window_row(int W, int lane, float x, float y,
+                                              const float2* sxy, float* d_out) {
+  float dmin = INFINITY;
+  int imin = W;
+  int i = lane;
+  if (lane == 0) {
+    const float2 r = sxy[0];
+    const float dx = x - r.x;
+    const float dy = y - r.y;
+    dmin = dx * dx + dy * dy;
+    imin = 0;
+    i = G;
+  }
+  for (; i < W; i += G) {
+    const float2 r = sxy[i];
+    const float dx = x - r.x;
+    const float dy = y - r.y;
     const float d = dx * dx + dy * dy;
     if (d < dmin) {
       dmin = d;
-      ryaw = row.z;
-      rv = row.w;
-      if (!ISO) {
-        rx = row.x;
-        ry = row.y;
-      }
+      imin = i;
     }
   }
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) {
+    const float od = __shfl_xor_sync(kFullMask, dmin, o, G);
+    const int oi = __shfl_xor_sync(kFullMask, imin, o, G);
+    if (od != od || (dmin == dmin && (od < dmin || (od == dmin && oi < imin)))) {
+      dmin = od;
+      imin = oi;
+    }
+  }
+  *d_out = dmin;
+  return imin;
+}
+
+// Stage cost of the group's sample at pose (x, y, yaw, v) with sin/cos
+// (s, c) of yaw: tracking against the window's running-min row, plus the
+// outline test. `sxy` and `syv` are the window's (x, y) and (yaw, v) rows,
+// `sout` the outline's scaled points (bx, by), all in shared memory.
+template <int G, bool ISO>
+__device__ __forceinline__ float dmm_bicycle_cost(const DmmBicycleArgs& p, int lane, float x,
+                                                  float y, float yaw, float v, float c, float s,
+                                                  const float4& wgt, const float2* sxy,
+                                                  const float2* syv, const float2* sout,
+                                                  const float* obs) {
+  static_assert(G >= 2 && G <= 16 && (G & (G - 1)) == 0, "G: a power of two, 2 to 16");
+  const float two_pi = 6.28318530717958647692f;  // float32(2π)
+  float dmin;
+  const int row = dmm_window_row<G>(p.W, lane, x, y, sxy, &dmin);
+  const float2 yv = syv[row];
   const float yaw_w = yaw - two_pi * floorf(yaw / two_pi);
-  const float eyaw = yaw_w - ryaw;
-  const float ev = v - rv;
+  const float eyaw = yaw_w - yv.x;
+  const float ev = v - yv.y;
   float cost;
   if (ISO) {
     cost = wgt.x * dmin + wgt.z * eyaw * eyaw + wgt.w * ev * ev;
   } else {
-    const float ex = x - rx;
-    const float ey = y - ry;
+    const float2 xy = sxy[row];
+    const float ex = x - xy.x;
+    const float ey = y - xy.y;
     cost = wgt.x * ex * ex + wgt.y * ey * ey + wgt.z * eyaw * eyaw + wgt.w * ev * ev;
   }
   if (p.n_obs > 0) {
-    float hit = 0.0f;
-    for (int j = 0; j < kOutlinePoints; ++j) {
-      const float bx = p.outline_x[j] * p.half_l;
-      const float by = p.outline_y[j] * p.half_w;
-      const float px = bx * c - by * s + x;
-      const float py = bx * s + by * c + y;
+    bool h = false;
+    for (int j = lane; j < kOutlinePoints; j += G) {
+      const float2 b = sout[j];
+      const float px = b.x * c - b.y * s + x;
+      const float py = b.x * s + b.y * c + y;
       for (int o = 0; o < p.n_obs; ++o) {
         const float ox = px - obs[3 * o];
         const float oy = py - obs[3 * o + 1];
         const float r = obs[3 * o + 2];
-        if (ox * ox + oy * oy < r * r) hit = 1.0f;
+        h = h | (ox * ox + oy * oy < r * r);
       }
     }
+    const unsigned group = __ballot_sync(kFullMask, h) >> ((threadIdx.x & 31) & ~(G - 1));
+    const float hit = (group & ((1u << G) - 1)) != 0 ? 1.0f : 0.0f;
     cost = cost + hit * p.penalty;
   }
   return cost;
 }
 
-// The cost S of sample k. `su`, `sa`, `swin`, `sobs` are the block's shared
-// copies of u, a, the window and the obstacles. GEN draws ε from the hash
-// stream as one block of K samples and stores it to p.eps.
-template <bool ISO, bool GEN>
-__device__ float dmm_bicycle_sample(const DmmBicycleArgs& p, int k, const float* su,
-                                    const float* sa, const float4* swin, const float* sobs) {
+// The cost S of sample k, in every lane of its group; `active` is false for
+// a group past K (it runs on sample K − 1 for the shuffles and stores
+// nothing). `su`, `sa`, `sxy`, `syv`, `sout`, `sobs` are the block's shared
+// copies of u, a, the window, the outline and the obstacles. GEN draws ε
+// from the hash stream as one block of K samples and stores it to p.eps.
+template <int G, bool ISO, bool GEN>
+__device__ float dmm_bicycle_sample(const DmmBicycleArgs& p, int k, int lane, bool active,
+                                    const float* su, const float* sa, const float2* sxy,
+                                    const float2* syv, const float2* sout, const float* sobs) {
   const int T = p.T, K = p.K;
   const float dt = p.dt, inv_L = p.inv_wheel_base;
   const float4 sw = make_float4(p.stage_w[0], p.stage_w[1], p.stage_w[2], p.stage_w[3]);
@@ -152,17 +197,23 @@ __device__ float dmm_bicycle_sample(const DmmBicycleArgs& p, int k, const float*
   float s, c;
   sincosf(yaw, &s, &c);
   float S = 0.0f;
+  float g0 = 0.0f, g1 = 0.0f;  // GEN: this lane's ε of step t0 + lane
   for (int t = 0; t < T; ++t) {
     float e0, e1;
-    const size_t at = static_cast<size_t>(t) * K + k;
     if (GEN) {
-      float z0, z1;
-      dmm_hash_normal_pair(base, static_cast<uint32_t>(at), &z0, &z1);
-      e0 = l00 * z0;
-      e1 = l10 * z0 + l11 * z1;
-      reinterpret_cast<float2*>(p.eps)[at] = make_float2(e0, e1);
+      const int r = t & (G - 1);
+      if (r == 0 && t + lane < T) {
+        const size_t at = static_cast<size_t>(t + lane) * K + k;
+        float z0, z1;
+        dmm_hash_normal_pair(base, static_cast<uint32_t>(at), &z0, &z1);
+        g0 = l00 * z0;
+        g1 = l10 * z0 + l11 * z1;
+        if (active) reinterpret_cast<float2*>(p.eps)[at] = make_float2(g0, g1);
+      }
+      e0 = __shfl_sync(kFullMask, g0, r, G);
+      e1 = __shfl_sync(kFullMask, g1, r, G);
     } else {
-      const float2 e = reinterpret_cast<const float2*>(p.eps)[at];
+      const float2 e = reinterpret_cast<const float2*>(p.eps)[static_cast<size_t>(t) * K + k];
       e0 = e.x;
       e1 = e.y;
     }
@@ -170,16 +221,15 @@ __device__ float dmm_bicycle_sample(const DmmBicycleArgs& p, int k, const float*
     float ac = exploit ? su[2 * t + 1] + e1 : e1;
     st = dmm_bicycle_clip(st, smin, smax);
     ac = dmm_bicycle_clip(ac, amin, amax);
-
     x = x + v * c * dt;
     y = y + v * s * dt;
     yaw = yaw + v * inv_L * tanf(st) * dt;
     v = v + ac * dt;
     sincosf(yaw, &s, &c);
 
-    float cost = dmm_bicycle_cost<ISO>(p, x, y, yaw, v, c, s, sw, swin, sobs);
+    float cost = dmm_bicycle_cost<G, ISO>(p, lane, x, y, yaw, v, c, s, sw, sxy, syv, sout, sobs);
     cost = cost + sa[2 * t] * st + sa[2 * t + 1] * ac;
     S = S + cost;
   }
-  return S + dmm_bicycle_cost<ISO>(p, x, y, yaw, v, c, s, tw, swin, sobs);
+  return S + dmm_bicycle_cost<G, ISO>(p, lane, x, y, yaw, v, c, s, tw, sxy, syv, sout, sobs);
 }

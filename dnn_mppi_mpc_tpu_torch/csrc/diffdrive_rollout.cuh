@@ -50,6 +50,7 @@ struct DmmArgs {
   float* u_new;             // (T, 2)
   float* u_shift;           // (T, 2)
   float* finite;            // (1,) 1.0 when the update was applied
+  float* scratch;           // the K-blocked tick's chunk partials (dmm_chunk_scratch_floats)
   // sizes and modes
   int K, T, W, n_obs;
   int k_blk;                // samples per noise-stream block (generated ε)
@@ -60,6 +61,7 @@ struct DmmArgs {
   int fuse_epilogue;
   int block_offset;         // generated ε: sample k draws from block block_offset + k / k_blk
   int s_only;               // dmm_mppi_tick in eps_mode 2: the rollout (S) only
+  int scratch_floats;       // floats at scratch
   float dt, n_exploit, k_offset, inv_temp;
   float obs_radius;         // effective robot radius (circle mode)
   float soft_dist, soft_w;

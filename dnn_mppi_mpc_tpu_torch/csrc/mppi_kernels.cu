@@ -27,21 +27,27 @@
 // member grid dimension: the rollout on (K/64, B) blocks, member b's
 // constants staged per block; the softmax on one block per member; Σ w·ε on
 // (T, B) blocks that draw ε again from member b's stream rather than storing
-// B·T·K·2 floats. One controller is B = 1. The weighted noise
+// B·T·K·2 floats. One controller is B = 1. The K-blocked tick at pod-scale
+// K (102 400 samples) is bound by its reductions' operations: Σ w·ε draws
+// its 2·T·K normals again (~0.3 G hash operations). On one block (the
+// softmax) and T = 50 blocks (Σ w·ε) they took 80 and 212 µs, so it runs
+// the chunked reductions (mppi_reductions.cuh): the softmax over C chunks
+// of K and Σ w·ε on a (C, ⌈T/5⌉) grid, each chunk in one noise-stream
+// block, the chunks' partials combined in chunk order. The weighted noise
 // reduce of the sharded tick reads K weights and writes 2·T floats, and its
-// cost is the 2·T·K hash draws it regenerates: bound by operations, and on
-// T = 50 blocks far from the card's width (a grid over (T, K-chunks) with a
-// fixed-order second pass is the later redesign).
-// Design: 64-thread blocks so that every one of the 132 SMs gets a block at
-// the flagship K, per-tick constants staged in shared memory, no atomics.
-// The reductions are small: a one-block pass (per member) for ρ = min S and
-// η = Σ exp(−λ(S−ρ)) (which also writes w), one block per t for Σₖ wₖ·εₖ
-// (both in mppi_reductions.cuh, shared with the bicycle tick), and a
-// one-block epilogue (there too, shared with the generic tick); each is a
-// fixed-order tree, so results repeat
-// bit for bit from run to run. Not yet done (later work): splitting the W
-// search across lanes, regenerating ε in the single-block tick instead of
-// storing it, fusing the four launches.
+// cost is the 2·T·K hash draws it regenerates: bound by operations, on
+// T = 50 blocks far from the card's width (moving it onto the chunked grid
+// is later work).
+// Design: 64-thread rollout blocks so that every one of the 132 SMs gets a
+// block at the flagship K, per-tick constants staged in shared memory, no
+// atomics. The reductions of the other ticks are small: a one-block pass
+// (per member) for ρ = min S and η = Σ exp(−λ(S−ρ)) (which also writes w),
+// one block per t for Σₖ wₖ·εₖ (both in mppi_reductions.cuh, shared with the
+// bicycle tick), and a one-block epilogue (there too, shared with the
+// generic tick); each is a fixed-order tree, so results repeat bit for bit
+// from run to run. Not yet done (later work): splitting the W search across
+// lanes (as the bicycle rollout does), regenerating ε in the single-block
+// tick instead of storing it, fusing the four launches.
 //
 // Built with -fmad=false (see _build.py): no implicit FMA contraction, so the
 // kernel rounds like the plain PyTorch version op for op; the epilogue's
@@ -60,7 +66,8 @@ namespace {
 // The fields of DmmArgs that the reductions read and write.
 DmmReduceArgs reduce_args(const DmmArgs& p) {
   return DmmReduceArgs{p.S, p.w, p.stats, p.eps, p.w_eps, p.chol, p.seed,
-                       p.K, p.k_blk, p.inv_temp, p.block_offset};
+                       p.K, p.k_blk, p.inv_temp, p.block_offset, p.scratch,
+                       p.scratch_floats};
 }
 
 // Stage u, a, the window and the obstacles in shared memory.
@@ -115,6 +122,20 @@ cudaError_t launch_rollout(const DmmArgs& p, int B, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// The fused or K-blocked tick.
+cudaError_t mppi_tick(const DmmArgs& p, cudaStream_t s) {
+  if (p.T > 1024 || (p.s_only && p.eps_mode != 2)) return cudaErrorInvalidValue;
+  cudaError_t err = launch_rollout(p, 1, s);
+  if (err != cudaSuccess || p.s_only) return err;
+  if (p.eps_mode == 2) return launch_chunked_reductions(reduce_args(p), p.T, s);
+  err = launch_reductions<false>(reduce_args(p), p.T, 1, s);
+  if (err != cudaSuccess) return err;
+  if (p.fuse_epilogue)
+    err = launch_epilogue<2>(
+        DmmEpilogueArgs{p.filter_t, p.w_eps, p.u, p.u_new, p.u_shift, p.finite, p.T}, s);
+  return err;
+}
+
 }  // namespace
 
 extern "C" {
@@ -131,22 +152,18 @@ int dmm_rollout_costs(const DmmArgs* args, void* stream) {
   return static_cast<int>(launch_rollout(p, 1, static_cast<cudaStream_t>(stream)));
 }
 
-// Fused / K-blocked tick: rollout, softmax statistics and w, Σ w·ε, and the
-// epilogue when fuse_epilogue is set. Four launches on one stream at most;
-// with s_only (eps_mode 2) the rollout alone.
+// Fused tick (eps_mode 0 or 1): rollout, softmax statistics and w, Σ w·ε,
+// and the epilogue when fuse_epilogue is set; four launches at most. The
+// K-blocked tick (eps_mode 2): the rollout, then the chunked softmax and
+// Σ w·ε (three launches), no epilogue; with s_only the rollout alone.
 int dmm_mppi_tick(const DmmArgs* args, void* stream) {
-  const DmmArgs p = *args;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p.T > 1024 || (p.s_only && p.eps_mode != 2)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = launch_rollout(p, 1, s);
-  if (err != cudaSuccess || p.s_only) return static_cast<int>(err);
-  err = p.eps_mode == 2 ? launch_reductions<true>(reduce_args(p), p.T, 1, s)
-                        : launch_reductions<false>(reduce_args(p), p.T, 1, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (p.fuse_epilogue)
-    err = launch_epilogue<2>(
-        DmmEpilogueArgs{p.filter_t, p.w_eps, p.u, p.u_new, p.u_shift, p.finite, p.T}, s);
-  return static_cast<int>(err);
+  return static_cast<int>(mppi_tick(*args, static_cast<cudaStream_t>(stream)));
+}
+
+// The floats of scratch (DmmArgs::scratch) the K-blocked tick needs at
+// (K, k_blk, T): the wrapper allocates this many.
+long long dmm_chunk_scratch_floats(int K, int k_blk, int T) {
+  return K > 0 && k_blk > 0 && K % k_blk == 0 ? chunk_scratch_floats(K, k_blk, T, 2) : -1;
 }
 
 // Σₖ wₖ·εₖ with ε drawn again from (seed, block_offset + k / k_blk): reads

@@ -4,10 +4,14 @@
 //
 // Shared by the diff-drive ticks (mppi_kernels.cu), the bicycle tick
 // (bicycle_kernels.cu) and the generic tick (generic_kernels.cu); Σ w·ε and
-// the epilogue are templates on the control width NU. Each reduction is a
-// fixed-order tree in one block, so results repeat bit for bit from run to
-// run. They take the few fields they read in DmmReduceArgs and
-// DmmEpilogueArgs, which each entry point fills from its own argument block.
+// the epilogue are templates on the control width NU. The one-block forms
+// (softmax_kernel, weighted_eps_kernel) serve those ticks; the K-blocked
+// tick at pod-scale K runs the chunked forms (launch_chunked_reductions):
+// grid-wide passes over C chunks of K, each chunk's partial written to
+// scratch and combined in chunk order. No atomics anywhere: every sum is a
+// fixed-order tree or loop, so results repeat bit for bit from run to run.
+// They take the few fields they read in DmmReduceArgs and DmmEpilogueArgs,
+// which each entry point fills from its own argument block.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -31,6 +35,8 @@ struct DmmReduceArgs {
   int k_blk;              // samples per noise-stream block (regenerated ε)
   float inv_temp;
   int block_offset;       // sample k draws from block block_offset + k / k_blk
+  float* scratch;         // chunked reductions: (2·C + T·C·NU) floats (B = 1)
+  int scratch_floats;
 };
 
 namespace {
@@ -222,6 +228,219 @@ cudaError_t launch_reductions(const DmmReduceArgs& r, int T, int B, cudaStream_t
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   weighted_eps_kernel<REGEN, NU><<<dim3(T, B), kWepsThreads, 0, s>>>(r);
+  return cudaGetLastError();
+}
+
+// --- the K-blocked tick's chunked reductions ---------------------------------
+//
+// What bounds them at pod-scale K (102 400 samples, T = 50): Σ w·ε draws
+// 2·T·K normals again (~0.3 G hash operations), the softmax reads K costs
+// twice. One block (the softmax) or T = 50 blocks (Σ w·ε) leave most of the
+// 132 SMs idle, so both now run as grids over C chunks of K: a chunk lies in
+// one noise-stream block of k_blk samples (its stream base computed once)
+// and holds at most kChunkTarget samples, k_blk split into equal chunks.
+// The softmax is online: one pass gives each chunk its min m_c and
+// s_c = Σ exp(−λ(S−m_c)) (from registers), and η = Σ_c s_c·exp(−λ(m_c−ρ)),
+// the merge of the JAX kernel's K blocks (ops/pallas/mppi_tick_blocked.py:252;
+// the two-pass form, ρ first and then every exponent as the plain version's,
+// took the same time: root PERF.md §6). Then Σ w·ε on a (C, ⌈T/5⌉) grid:
+// block (c, s) combines the chunk statistics into ρ and η, forms its chunk's
+// w = exp(−λ(S−ρ))/η once (the blocks of s = 0 store it), and for each of
+// its five steps draws its chunk's ε, colours it by Σ's factor and writes
+// its NU partial sums; one block then sums each (t, j) over the chunks in
+// chunk order and stores ρ and η.
+
+constexpr int kChunkTarget = 2048;  // samples a chunk at most
+constexpr int kChunkThreads = 256;
+constexpr int kChunkPerThread = kChunkTarget / kChunkThreads;
+constexpr int kChunkSteps = 5;  // steps of Σ w·ε a block
+
+// K (a multiple of k_blk) in chunks: `per_blk` equal chunks (the last one
+// of a block shorter when per_blk does not divide k_blk) of `size` samples.
+struct DmmChunks {
+  int per_blk, size, count;
+};
+
+__host__ __device__ inline DmmChunks dmm_chunks(int K, int k_blk) {
+  const int per_blk = (k_blk + kChunkTarget - 1) / kChunkTarget;
+  return DmmChunks{per_blk, (k_blk + per_blk - 1) / per_blk, (K / k_blk) * per_blk};
+}
+
+// The floats of scratch the chunked reductions need: m_c (or each chunk's
+// min), s_c, and the (T, C, NU) partials of Σ w·ε.
+__host__ __device__ inline long long chunk_scratch_floats(int K, int k_blk, int T, int NU) {
+  const long long C = dmm_chunks(K, k_blk).count;
+  return 2 * C + static_cast<long long>(T) * C * NU;
+}
+
+// Chunk c: samples [*begin, *end) of noise-stream block *blk (before the offset).
+__device__ __forceinline__ void dmm_chunk(const DmmReduceArgs& p, const DmmChunks& ch, int c,
+                                          int* begin, int* end, int* blk) {
+  *blk = c / ch.per_blk;
+  *begin = *blk * p.k_blk + (c - *blk * ch.per_blk) * ch.size;
+  *end = min(*begin + ch.size, (*blk + 1) * p.k_blk);
+}
+
+// The block's min (NaN-propagating) or sum of one value a thread: xor
+// shuffles within each warp, then lane 0's result of each warp in warp
+// order. `red` holds kChunkThreads / 32 floats. The same order in every
+// kernel that calls it, so every block gets the same bits.
+template <bool MIN>
+__device__ __forceinline__ float block_tree(float v, float* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float u = __shfl_xor_sync(0xffffffffu, v, o);
+    v = MIN ? min_nan(v, u) : v + u;
+  }
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
+  float r = red[0];
+#pragma unroll
+  for (int i = 1; i < kChunkThreads / 32; ++i) r = MIN ? min_nan(r, red[i]) : r + red[i];
+  __syncthreads();  // red is free again
+  return r;
+}
+
+// ρ and η from the chunk statistics m_c and s_c, alike in every block: each
+// s_c rescaled to ρ (a chunk of +∞ costs contributes its count ×
+// exp(−λ(∞−ρ)), as the plain version's terms, not s_c's NaN).
+__device__ __forceinline__ void combine_chunks(const DmmReduceArgs& p, const DmmChunks& ch,
+                                               float* red, float* rho, float* eta) {
+  const int C = ch.count;
+  const float* m = p.scratch;
+  const float* sums = p.scratch + C;
+  float v = INFINITY;
+  for (int c = threadIdx.x; c < C; c += kChunkThreads) v = min_nan(v, m[c]);
+  const float r = block_tree<true>(v, red);
+  const float neg_lam = -p.inv_temp;
+  float acc = 0.0f;
+  for (int c = threadIdx.x; c < C; c += kChunkThreads) {
+    int begin, end, blk;
+    dmm_chunk(p, ch, c, &begin, &end, &blk);
+    const float f = expf(neg_lam * (m[c] - r));
+    acc = acc + (m[c] == INFINITY ? static_cast<float>(end - begin) * f : sums[c] * f);
+  }
+  *rho = r;
+  *eta = block_tree<false>(acc, red);
+}
+
+// Each chunk's min m_c and s_c = Σ exp(−λ(S−m_c)), its costs held
+// in registers between the two. Grid C.
+__global__ void __launch_bounds__(kChunkThreads) chunk_stats_kernel(DmmReduceArgs p,
+                                                                    DmmChunks ch) {
+  __shared__ float red[kChunkThreads / 32];
+  int begin, end, blk;
+  dmm_chunk(p, ch, blockIdx.x, &begin, &end, &blk);
+  float v[kChunkPerThread];
+  float m = INFINITY;
+#pragma unroll
+  for (int i = 0; i < kChunkPerThread; ++i) {
+    const int k = begin + threadIdx.x + i * kChunkThreads;
+    v[i] = k < end ? p.S[k] : INFINITY;
+    if (k < end) m = min_nan(m, v[i]);
+  }
+  m = block_tree<true>(m, red);
+  const float neg_lam = -p.inv_temp;
+  float acc = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kChunkPerThread; ++i)
+    if (begin + static_cast<int>(threadIdx.x) + i * kChunkThreads < end)
+      acc = acc + expf(neg_lam * (v[i] - m));
+  acc = block_tree<false>(acc, red);
+  if (threadIdx.x == 0) {
+    p.scratch[blockIdx.x] = m;
+    p.scratch[ch.count + blockIdx.x] = acc;
+  }
+}
+
+// Σ w·ε, block (c, s): chunk c's w (stored by the blocks of s = 0), formed
+// once and kept in registers, and its NU partial sums of wₖ·εₖ at each of
+// the steps [s·kChunkSteps, (s + 1)·kChunkSteps), ε drawn again from the
+// stream.
+template <int NU = 2>
+__global__ void __launch_bounds__(kChunkThreads) chunk_weps_kernel(DmmReduceArgs p,
+                                                                   DmmChunks ch, int T) {
+  __shared__ float red[kChunkThreads / 32];
+  const int c = blockIdx.x, t0 = blockIdx.y * kChunkSteps;
+  const int t1 = min(t0 + kChunkSteps, T);
+  float rho, eta;
+  combine_chunks(p, ch, red, &rho, &eta);
+  int begin, end, blk;
+  dmm_chunk(p, ch, c, &begin, &end, &blk);
+  float L[NU * NU];
+#pragma unroll
+  for (int i = 0; i < NU * NU; ++i) L[i] = p.chol[i];
+  const uint32_t base = dmm_stream_base(static_cast<uint32_t>(p.seed[0]),
+                                        static_cast<uint32_t>(blk + p.block_offset));
+  const float neg_lam = -p.inv_temp;
+  float w[kChunkPerThread];
+#pragma unroll
+  for (int i = 0; i < kChunkPerThread; ++i) {
+    const int k = begin + threadIdx.x + i * kChunkThreads;
+    w[i] = k < end ? expf(neg_lam * (p.S[k] - rho)) / eta : 0.0f;
+    if (k < end && t0 == 0) p.w[k] = w[i];
+  }
+  for (int t = t0; t < t1; ++t) {
+    float acc[NU];
+#pragma unroll
+    for (int j = 0; j < NU; ++j) acc[j] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kChunkPerThread; ++i) {
+      const int k = begin + threadIdx.x + i * kChunkThreads;
+      if (k < end) {
+        float z[2 * ((NU + 1) / 2)], e[NU];
+        dmm_hash_normals<NU>(base, t, T, p.k_blk, static_cast<uint32_t>(k - blk * p.k_blk), z);
+        dmm_color<NU>(L, z, e);
+#pragma unroll
+        for (int j = 0; j < NU; ++j) acc[j] = acc[j] + w[i] * e[j];
+      }
+    }
+    float* out = p.scratch + 2 * ch.count + (static_cast<size_t>(t) * ch.count + c) * NU;
+#pragma unroll
+    for (int j = 0; j < NU; ++j) {
+      const float r = block_tree<false>(acc[j], red);
+      if (threadIdx.x == 0) out[j] = r;
+    }
+  }
+}
+
+// w_eps[t, j] = Σ_c partial[t, c, j] in chunk order, and ρ, η. One block.
+template <int NU = 2>
+__global__ void __launch_bounds__(kChunkThreads) chunk_weps_final_kernel(DmmReduceArgs p,
+                                                                         DmmChunks ch, int T) {
+  __shared__ float red[kChunkThreads / 32];
+  float rho, eta;
+  combine_chunks(p, ch, red, &rho, &eta);
+  const float* part = p.scratch + 2 * ch.count;
+  for (int i = threadIdx.x; i < T * NU; i += kChunkThreads) {
+    const int t = i / NU, j = i - t * NU;
+    float acc = 0.0f;
+    for (int c = 0; c < ch.count; ++c) acc = acc + part[(static_cast<size_t>(t) * ch.count + c) * NU + j];
+    p.w_eps[i] = acc;
+  }
+  if (threadIdx.x == 0) {
+    p.stats[0] = rho;
+    p.stats[1] = eta;
+  }
+}
+
+// The K-blocked tick's softmax and Σ w·ε (B = 1, ε regenerated) as grid
+// passes over K's chunks on stream s: 3 launches. The first launch error;
+// the scratch too small is refused before any launch.
+template <int NU = 2>
+cudaError_t launch_chunked_reductions(const DmmReduceArgs& r, int T, cudaStream_t s) {
+  if (r.k_blk <= 0 || r.K % r.k_blk != 0 || T <= 0 || T > 65535 ||
+      r.scratch_floats < chunk_scratch_floats(r.K, r.k_blk, T, NU))
+    return cudaErrorInvalidValue;
+  const DmmChunks ch = dmm_chunks(r.K, r.k_blk);
+  chunk_stats_kernel<<<ch.count, kChunkThreads, 0, s>>>(r, ch);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int steps = (T + kChunkSteps - 1) / kChunkSteps;
+  chunk_weps_kernel<NU><<<dim3(ch.count, steps), kChunkThreads, 0, s>>>(r, ch, T);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  chunk_weps_final_kernel<NU><<<1, kChunkThreads, 0, s>>>(r, ch, T);
   return cudaGetLastError();
 }
 

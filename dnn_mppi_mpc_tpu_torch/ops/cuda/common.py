@@ -74,13 +74,23 @@ def check_seed(seed: torch.Tensor, device: torch.device, n: int = 1) -> int:
     return seed.data_ptr()
 
 
+def running_min_index(d: torch.Tensor) -> torch.Tensor:
+    """The window row a kernel's running minimum over each row of d (K, W)
+    picks: row 0, then a later row only where its d is strictly less. Ties
+    go to the first row, a NaN d past row 0 is never picked, and a NaN d at
+    row 0 is kept. Written without a host sync."""
+    nan = torch.isnan(d)
+    j = torch.argmin(torch.where(nan, torch.full_like(d, float("inf")), d), dim=1)
+    return torch.where(nan[:, 0], torch.zeros_like(j), j)
+
+
 def _tracking_plain(x, y, yaw, window, w, iso_xy: bool) -> torch.Tensor:
     """Nearest-waypoint tracking cost of each sample over the (W, 3) window:
-    the running min with the first-strict-< tie rule is argmin."""
+    the kernels' running min with the first-strict-< rule (running_min_index)."""
     dx = x[:, None] - window[:, 0]
     dy = y[:, None] - window[:, 1]
     d = dx * dx + dy * dy  # (K, W)
-    j = torch.argmin(d, dim=1)
+    j = running_min_index(d)
     eyaw = yaw - window[j, 2]
     if iso_xy:
         dmin = d.gather(1, j[:, None])[:, 0]
@@ -196,6 +206,7 @@ __all__ = [
     "f32",
     "on_cuda",
     "rollout_body_plain",
+    "running_min_index",
     "softmax_plain",
     "weighted_noise_plain",
 ]

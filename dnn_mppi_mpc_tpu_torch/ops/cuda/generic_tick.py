@@ -90,13 +90,13 @@ def _constants(step_tile) -> ctypes.Array:
 
 
 def _tracking_plain(xs, window, w, wrap_yaw: bool) -> torch.Tensor:
-    """Tracking cost of each sample against its nearest window row (argmin
-    over (x, y) is the running min with the first-strict-< rule); the plain
-    twin of ``dmm_generic_tracking``."""
+    """Tracking cost of each sample against its nearest window row (the
+    kernel's running min over (x, y) with the first-strict-< rule,
+    ``common.running_min_index``); the plain twin of ``dmm_generic_tracking``."""
     dx = xs[0][:, None] - window[:, 0]
     dy = xs[1][:, None] - window[:, 1]
     d = dx * dx + dy * dy  # (K, W)
-    ref = window.index_select(0, torch.argmin(d, dim=1))  # (K, n_track)
+    ref = window.index_select(0, common.running_min_index(d))  # (K, n_track)
     c = torch.zeros_like(xs[0])
     for i in range(w.shape[0]):
         xi = xs[i]

@@ -19,7 +19,7 @@ from typing import Optional
 
 import torch
 
-from ..._build import DmmArgs, launch
+from ..._build import DmmArgs, launch, load_kernels
 from ..filters import matmul_f32
 from .common import (
     check,
@@ -104,6 +104,13 @@ def diffdrive_mppi_tick_plain(
 diffdrive_mppi_tick_plain.calls = 0
 
 
+def chunk_scratch_floats(K: int, k_blk: int, T: int) -> int:
+    """The floats of scratch the K-blocked tick's chunked reductions need,
+    as the library computes them (``dmm_chunk_scratch_floats``; the chunk
+    layout lives in csrc/mppi_reductions.cuh alone)."""
+    return load_kernels().dmm_chunk_scratch_floats(K, k_blk, T)
+
+
 def launch_tick(
     *, seed, u, a, chol_sigma, x0, window, stage_w, term_w, u_min, u_max, dt,
     n_exploit, inv_temperature, obstacles, obstacle_velocities, robot_radius,
@@ -111,9 +118,10 @@ def launch_tick(
     filter_t, eps, eps_mode, k_blk, K, T, W, last_only, collision, iso_xy,
     k_offset=0.0, block_offset=0, s_only=False,
 ):
-    """Check the inputs, allocate the outputs and launch ``dmm_mppi_tick``.
-    Returns a dict of the output tensors (``eps`` is the (T, K, 2) buffer,
-    None when ε is regenerated; with ``s_only`` only S is written)."""
+    """Check the inputs, allocate the outputs and scratch and launch
+    ``dmm_mppi_tick``. Returns a dict of the output tensors (``eps`` is the
+    (T, K, 2) buffer, None when ε is regenerated; with ``s_only`` only S is
+    written)."""
     if collision not in _OBS_MODES:
         raise ValueError(f"collision must be 'circle' or 'soft', got {collision!r}")
     dev = u.device
@@ -159,6 +167,10 @@ def launch_tick(
     )
     if eps_mode != 0:
         fields["seed"] = check_seed(seed, dev)
+    if eps_mode == 2 and not s_only:
+        n = chunk_scratch_floats(K, k_blk, T)
+        out["scratch"] = torch.empty(n, dtype=torch.float32, device=dev)
+        fields.update(scratch=out["scratch"].data_ptr(), scratch_floats=n)
     if filter_t is not None:
         for name, shape in (("u_new", (T, 2)), ("u_shift", (T, 2)), ("finite", ())):
             out[name] = torch.empty(shape, dtype=torch.float32, device=dev)

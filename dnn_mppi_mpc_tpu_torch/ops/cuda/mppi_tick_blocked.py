@@ -8,10 +8,12 @@ Counterpart of ``dnn_mppi_mpc_tpu/ops/pallas/mppi_tick_blocked.py``:
   is position (t, r, lane) of ``hash_normal_pair(seed, block_offset + b,
   (T, K_BLK/128, 128))``, bit for bit the JAX kernel's ``gaussian="hash"``
   stream. What does not: the TPU runs the K blocks in order and merges them
-  with an online softmax; on the card the blocks run in parallel, so ρ and η
-  come from the same two-pass reduction as the fused tick, and the Σw·ε pass
-  draws ε again from the stream instead of reading a stored (T, K, 2)
-  buffer. ``s_only`` stops after the rollout: phase 1 of the sharded tick.
+  with an online softmax; on the card the rollout's blocks run in parallel,
+  and then grid passes over chunks of K give each chunk its min and its
+  Σ exp(−λ(S − min)), merged into ρ and η in chunk order, and Σw·ε on a
+  grid of chunks × steps draws ε again from the stream instead of reading
+  a stored (T, K, 2) buffer (csrc/mppi_reductions.cuh). ``s_only`` stops
+  after the rollout: phase 1 of the sharded tick.
 * :func:`weighted_noise_reduce` (``:475``): Σₖ wₖ·εₖ with ε drawn again from
   the same stream, phase 2 of the sharded tick.
 * :func:`fleet_mppi_tick` (``:618``): B complete ticks in one call, member b

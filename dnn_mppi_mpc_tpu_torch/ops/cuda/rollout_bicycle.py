@@ -29,8 +29,9 @@ from .common import TWO_PI, check, check_seed, f32, on_cuda
 
 def check_staging(T: int, W: int, n_obs: int) -> None:
     """Raise unless the bicycle kernels can stage u, a (T, 2 each), the
-    (W, 4) window and the (n, 3) obstacles in shared memory."""
-    common.check_staging("bicycle", 4 * T + 4 * W + 3 * n_obs,
+    (W, 4) window, the outline's points and the (n, 3) obstacles in shared
+    memory."""
+    common.check_staging("bicycle", 4 * T + 4 * W + 2 * OUTLINE_POINTS + 3 * n_obs,
                          f"u, a, the (W={W}, 4) window and {n_obs} obstacles")
 
 
@@ -48,12 +49,12 @@ def vehicle_scalars(wheel_base=2.5, vehicle_length=4.0, vehicle_width=3.0, margi
 
 def _bicycle_cost_plain(x, y, yaw, v, c, s, w, window, obstacles, veh, iso_xy):
     """Stage cost of each sample at (x, y, yaw, v) with sin/cos (s, c) of
-    yaw; the plain twin of ``dmm_bicycle_cost``. argmin is the running min
-    with the first-strict-< rule."""
+    yaw; the plain twin of ``dmm_bicycle_cost``. The row is the kernel's
+    running min with the first-strict-< rule (``common.running_min_index``)."""
     dx = x[:, None] - window[:, 0]
     dy = y[:, None] - window[:, 1]
     d = dx * dx + dy * dy  # (K, W)
-    j = torch.argmin(d, dim=1)
+    j = common.running_min_index(d)
     ref = window.index_select(0, j)  # (K, 4)
     # a tensor divisor: PyTorch turns division by a Python scalar into a
     # multiplication by its reciprocal on the card, which can round otherwise

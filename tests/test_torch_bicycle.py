@@ -4,7 +4,8 @@ building blocks against the JAX package.
 * the split rollout's plain version against ``bicycle_rollout_costs(...,
   interpret=True)``: rtol 3e-4, atol 2e-2 as tests/test_pallas_bicycle.py:98
   (float32 sums of T stage costs from two libraries' sin/cos/tan; the atol
-  covers the 1e7 collision penalties' neighbours);
+  covers the 1e7 collision penalties' neighbours), also with a NaN window
+  row past row 0 and at row 0, and with rows that tie exactly;
 * the fused tick's plain version against ``bicycle_mppi_tick(..., eps=...,
   interpret=True)``: S rtol/atol 3e-4, w rtol 3e-4 atol 1e-6 as
   tests/test_bicycle_tick.py:113-117, Σw·ε rtol 1e-4 atol 1e-5 as its
@@ -52,9 +53,13 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _inputs(seed, *, alpha=1.0, path="lemniscate", start=0, W=100, obstacles=False):
+def _inputs(seed, *, alpha=1.0, path="lemniscate", start=0, W=100, obstacles=False,
+            nan_row=None, twin=None):
     """Numpy inputs of one race-car rollout, K samples, window rows
-    [start, start + W) of a 100-point lemniscate or a 400-point circle."""
+    [start, start + W) of a 100-point lemniscate or a 400-point circle;
+    ``nan_row``: that window row all NaN; ``twin``: rows [twin, W) take the
+    (x, y) of rows [0, W − twin) with another yaw and speed, so the nearest
+    row always ties and the first of the two must win."""
     rng = np.random.default_rng(seed)
     if path == "lemniscate":
         ref = np.asarray(jpaths.lemniscate_with_speed(10.0, 100), np.float32)
@@ -64,12 +69,18 @@ def _inputs(seed, *, alpha=1.0, path="lemniscate", start=0, W=100, obstacles=Fal
         x0 = np.array([*ref[start + 5, :2] + [0.3, -0.2], ref[start + 5, 2], 3.5], np.float32)
     u = rng.normal(scale=0.1, size=(T, 2)).astype(np.float32)
     gamma = 50.0 * (1.0 - alpha)
+    window = np.array(ref[start:start + W])
+    if nan_row is not None:
+        window[nan_row] = np.nan
+    if twin is not None:
+        window[twin:, :2] = window[:W - twin, :2]
+        window[twin:, 2:] = window[:W - twin, 2:] + np.float32([1.0, 2.0])
     return dict(
         eps=rng.multivariate_normal(np.zeros(2), SIGMA, (K, T)).astype(np.float32),
         u=u,
         a=(gamma * (u @ np.linalg.inv(SIGMA))).astype(np.float32),
         x0=x0,
-        window=np.ascontiguousarray(ref[start:start + W]),
+        window=window,
         stage_w=np.array([50.0, 50.0, 1.0, 20.0], np.float32),
         term_w=np.array([40.0, 40.0, 2.0, 10.0], np.float32),
         u_min=np.array([-0.523, -2.0], np.float32),
@@ -94,6 +105,12 @@ ROLLOUT_CASES = {
     "free_alpha0.8": dict(alpha=0.8),
     "obstacles_alpha0.8": dict(alpha=0.8, obstacles=True),
     "moving_window": dict(alpha=0.8, path="circle", start=37, W=50),
+    # the kernels' running min: a NaN row past row 0 is never the nearest,
+    # a NaN row 0 is kept (every cost NaN), and of two rows that tie exactly
+    # the first wins
+    "nan_row7": dict(alpha=0.8, nan_row=7, obstacles=True),
+    "nan_row0": dict(alpha=0.8, nan_row=0),
+    "tie_rows": dict(alpha=0.8, twin=50),
 }
 
 
@@ -104,6 +121,10 @@ def test_bicycle_rollout_matches_jax(f32_mode, case):
     got = _rollout(inputs, "torch")
     if inputs["obstacles"] is not None:
         assert K // 50 < (want > 1e6).sum() < K  # some rollouts hit, not all
+    if case == "nan_row0":
+        assert np.isnan(want).all()
+    else:
+        assert np.isfinite(want).all()
     np.testing.assert_allclose(got, want, rtol=3e-4, atol=2e-2)
 
 

@@ -6,7 +6,8 @@
   T = 10, tests/test_generic_tick.py:46), over the four tile-step families,
   no obstacles / circle / soft with drift, SUM / LAST, W = 8 and 40 (the
   JAX kernel's hoisted and loop window paths), wrap-yaw, the fused epilogue,
-  and k_offset 0 and 128; tolerances of tests/test_generic_tick.py:114-123
+  and k_offset 0 and 128, a NaN window row past row 0 and at row 0, rows that
+  tie exactly; tolerances of tests/test_generic_tick.py:114-123
   (S rtol/atol 3e-4; w rtol 3e-4 atol 1e-6; controls rtol 1e-4 atol 1e-5);
 * ``MPPISolver(fused_tick=True, tile_dynamics=four_wheel_torque_tile(DT),
   device="cpu")`` against the JAX ``mppi_step`` with
@@ -67,8 +68,11 @@ def _path(ncols, n=80, seed=7):
     return np.stack(cols, 1).astype(np.float32)
 
 
-def _inputs(family, W, n_track, obstacles, drift, seed=11):
-    """One tick's inputs as numpy, made from ``seed``."""
+def _inputs(family, W, n_track, obstacles, drift, seed=11, window="plain"):
+    """One tick's inputs as numpy, made from ``seed``; ``window``: "nan_row7"
+    / "nan_row0" set that window row all NaN, "tie" gives rows [W/2, W) the
+    (x, y) of rows [0, W/2) with other tracked columns, so the nearest row
+    always ties and the first of the two must win."""
     nx, nu, _, _, bound = FAMILIES[family]
     rng = np.random.default_rng(seed)
     A = rng.normal(0.0, 0.2, (nu, nu))
@@ -85,9 +89,15 @@ def _inputs(family, W, n_track, obstacles, drift, seed=11):
     if family == "dynamic_bicycle":
         lo[1], hi[1] = -bound, bound
     f = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    win = _path(max(n_track, 2))[3:3 + W]
+    if window in ("nan_row7", "nan_row0"):
+        win[int(window[-1])] = np.nan
+    elif window == "tie":
+        win[W // 2:, :2] = win[:W - W // 2, :2]
+        win[W // 2:, 2:] += 1.0
     return dict(
         u=f(u), a=f(0.56 * u @ np.linalg.inv(sigma)), chol=f(np.linalg.cholesky(sigma)),
-        x0=f(x0), window=_path(max(n_track, 2))[3:3 + W], stage_w=f(rng.uniform(1.0, 6.0, n_track)),
+        x0=f(x0), window=win, stage_w=f(rng.uniform(1.0, 6.0, n_track)),
         term_w=f(rng.uniform(2.0, 9.0, n_track)), u_min=f(lo), u_max=f(hi),
         eps=f(rng.multivariate_normal(np.zeros(nu), sigma, (K, T))),
         obstacles=OBSTACLES if obstacles else None, velocities=VELOCITIES if drift else None,
@@ -103,9 +113,9 @@ def _j(x):
 
 
 def _run_tick(family, W, n_track, *, obstacles=False, drift=False, collision="circle",
-              last=False, wrap=False, fuse=False):
+              last=False, wrap=False, fuse=False, window="plain"):
     nx, nu, ttl, jtl, _ = FAMILIES[family]
-    p = _inputs(family, W, n_track, obstacles, drift)
+    p = _inputs(family, W, n_track, obstacles, drift, window=window)
     ft = np.ascontiguousarray(filter_matrix("ma_edge", T, 5).T, np.float32)
     common = dict(dt=DT, n_exploit=0.75 * K, robot_radius=0.1, soft_safety_distance=1.2,
                   soft_weight=4.0)
@@ -146,6 +156,14 @@ TICK_CASES = {
                                       dict(obstacles=True, drift=True, collision="soft")),
     "dynamic_bicycle wrap circle LAST W40 epilogue": (
         "dynamic_bicycle", 40, 3, dict(obstacles=True, wrap=True, last=True, fuse=True)),
+    # the kernel's running min over the window (hoisted at W = 8, a loop at
+    # W = 40 in the JAX kernel): a NaN row past row 0 is never the nearest, a
+    # NaN row 0 is kept (every cost NaN), of two rows that tie the first wins
+    "unicycle nan_row7 W8": ("unicycle", 8, 3, dict(window="nan_row7")),
+    "kinematic_bicycle nan_row7 circle W40": (
+        "kinematic_bicycle", 40, 4, dict(obstacles=True, window="nan_row7")),
+    "unicycle nan_row0 W40": ("unicycle", 40, 3, dict(window="nan_row0")),
+    "four_wheel_torque tie W40": ("four_wheel_torque", 40, 3, dict(window="tie")),
 }
 
 
@@ -158,6 +176,8 @@ def test_generic_tick_plain_matches_jax(case):
     jout, tout = _run_tick(family, W, n_track, **kw)
     assert kern.generic_mppi_tick_plain.calls == calls + 1
     (jS, jw, jweps), (tS, tw, tweps) = jout[:3], tout[:3]
+    nan_row0 = kw.get("window") == "nan_row0"
+    assert np.isnan(jS).all() if nan_row0 else np.isfinite(jS).all()
     np.testing.assert_allclose(tS.numpy(), np.asarray(jS), rtol=3e-4, atol=3e-4)
     np.testing.assert_allclose(tw.numpy(), np.asarray(jw), rtol=3e-4, atol=1e-6)
     np.testing.assert_allclose(tweps.numpy(), np.asarray(jweps), rtol=1e-4, atol=1e-5)

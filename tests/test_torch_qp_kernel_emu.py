@@ -1,16 +1,16 @@
 """The fused QP kernel's own source, run on the CPU.
 
 ``csrc/riccati_qp.cu`` is compiled with g++ against ``tests/cuda_emu.h``
-(the CUDA builtins it uses, a warp as 32 threads that meet at every
-shuffle and ``__syncwarp``; ``-ffp-contract=off`` as nvcc's
-``-fmad=false``), and ``ops/cuda/riccati_qp.py``'s ``_launch`` drives it
-through ctypes on CPU tensors, with its real argument block
-(``kernel_tables``, strides, the shared-memory record count). So the
-kernel's indexing, its four phases, the shuffles of phase B and the warp
-trees are checked here, where there is no card, for each of the 13
-instantiated (nx, nu): every case must equal the plain version
-(``_qp_plain``) bit for bit, as the kernel equals it on the card
-(``chip_smoke.py``). Also: the C struct's size against the ctypes mirror,
+by ``tests/cuda_emu.py`` (the CUDA builtins it uses; every thread a fiber
+on the calling thread, a warp's 32 lanes meeting at every shuffle and
+``__syncwarp``; ``-ffp-contract=off`` as nvcc's ``-fmad=false``), and
+``ops/cuda/riccati_qp.py``'s ``_launch`` drives it through ctypes on CPU
+tensors, with its real argument block (``kernel_tables``, strides, the
+shared-memory record count). So the kernel's indexing, its four phases,
+the shuffles of phase B and the warp trees are checked here, where there
+is no card, for each of the 13 instantiated (nx, nu): every case must
+equal the plain version (``_qp_plain``) bit for bit, as the kernel equals
+it on the card (``chip_smoke.py``). Also: the C struct's size against the ctypes mirror,
 and the launch's refusals (a record count other than the kernel's, no
 problem, no stage, no iteration, an uninstantiated shape). Skips without
 g++.
@@ -19,11 +19,8 @@ g++.
 from __future__ import annotations
 
 import ctypes
-import re
-import shutil
-import subprocess
-from pathlib import Path
 
+import cuda_emu
 import numpy as np
 import pytest
 import torch
@@ -32,28 +29,13 @@ from dnn_mppi_mpc_tpu_torch import _build
 from dnn_mppi_mpc_tpu_torch.ops.cuda import riccati_qp as rq
 from dnn_mppi_mpc_tpu_torch.solvers.qp import BoxedQPData
 
-HERE = Path(__file__).resolve().parent
-
 
 @pytest.fixture(scope="module")
 def emu(tmp_path_factory):
     """The kernel source built for the CPU emulation; ``_launch`` pointed at it."""
-    gxx = shutil.which("g++")
-    if gxx is None:
+    lib = cuda_emu.build(["riccati_qp.cu"], tmp_path_factory.mktemp("qp_emu"))
+    if lib is None:
         pytest.skip("needs g++ to build the kernel source for the CPU")
-    src = (_build.CSRC / "riccati_qp.cu").read_text()
-    src = src.replace("#include <cuda_runtime.h>", '#include "cuda_emu.h"')
-    src = src.replace("extern __shared__ float smem[];", "")
-    src, n = re.subn(r"(\w+<[^<>]*>)<<<([^,]+),\s*([^,]+),\s*([^,]+),\s*\w+>>>\((\w+)\)",
-                     r"emu_launch(\1, \2, \3, \4, \5)", src)
-    assert n == 1, "the kernel launch was not found"
-    work = tmp_path_factory.mktemp("qp_emu")
-    (work / "qp_emu.cpp").write_text(src)
-    lib_path = work / "libqp_emu.so"
-    subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
-                    "-pthread", f"-I{HERE}", str(work / "qp_emu.cpp"), "-o", str(lib_path)],
-                   check=True, capture_output=True, text=True)
-    lib = ctypes.CDLL(str(lib_path))
     lib.dmm_barrier_qp.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     lib.dmm_barrier_qp.restype = ctypes.c_int
     lib.dmm_qp_args_size.restype = ctypes.c_int

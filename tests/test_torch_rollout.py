@@ -1,8 +1,9 @@
 """The split rollout (ops/cuda/rollout.py) against the JAX Pallas kernel.
 
 On the CPU the port's wrapper runs its plain PyTorch version; the JAX side
-runs ``diffdrive_rollout_costs`` in Pallas interpret mode. Same numpy inputs,
-the tolerances of tests/test_pallas_rollout.py (rtol 2e-4, atol 1e-3: float32
+runs ``diffdrive_rollout_costs`` in Pallas interpret mode. Same numpy inputs
+(also with a NaN window row past row 0 and at row 0, and with rows that tie
+exactly), the tolerances of tests/test_pallas_rollout.py (rtol 2e-4, atol 1e-3: float32
 sums of T stage costs from two libraries' sin/cos). The kernel itself is
 held against the plain version on the card (marked ``cuda``).
 """
@@ -27,12 +28,20 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _inputs(seed, obstacles):
+def _inputs(seed, obstacles, window="plain"):
+    """``window``: "nan_row7" / "nan_row0" set that window row all NaN;
+    "tie" gives rows [10, 20) the (x, y) of rows [0, 10) with another yaw, so
+    the nearest row always ties and the first of the two must win."""
     rng = np.random.default_rng(seed)
     n = 100
     path = np.stack(
         [np.linspace(0, 10, n), np.linspace(0, -5, n), np.full(n, np.arctan2(-5, 10))], 1
     ).astype(np.float32)
+    if window in ("nan_row7", "nan_row0"):
+        path[int(window[-1])] = np.nan
+    elif window == "tie":
+        path[10:W, :2] = path[:W - 10, :2]
+        path[10:W, 2] += 1.0
     sigma = np.array([[0.1, 0.0], [0.0, 0.01]])
     u = rng.normal(scale=0.3, size=(T, 2)).astype(np.float32)
     u[:, 0] += 1.5
@@ -63,14 +72,29 @@ def _run(inputs, backend, *, last_only, exploration, k_offset=0.0):
     ))
 
 
-@pytest.mark.parametrize("obstacles", [False, True])
-@pytest.mark.parametrize("last_only", [False, True])
-def test_rollout_matches_jax(obstacles, last_only):
-    inputs = _inputs(0, obstacles)
+# (last_only, obstacles, window); the kernels' running min: a NaN row past
+# row 0 is never the nearest, a NaN row 0 is kept (every cost NaN), and of
+# two rows that tie exactly the first wins
+ROLLOUT_CASES = {
+    "False-False": (False, False, "plain"),
+    "False-True": (False, True, "plain"),
+    "True-False": (True, False, "plain"),
+    "True-True": (True, True, "plain"),
+    "nan_row7": (False, True, "nan_row7"),
+    "nan_row0": (False, False, "nan_row0"),
+    "tie": (True, False, "tie"),
+}
+
+
+@pytest.mark.parametrize("last_only, obstacles, window", list(ROLLOUT_CASES.values()),
+                         ids=list(ROLLOUT_CASES))
+def test_rollout_matches_jax(obstacles, last_only, window):
+    inputs = _inputs(0, obstacles, window)
     want = _run(inputs, "jax", last_only=last_only, exploration=0.0001)
     got = _run(inputs, "torch", last_only=last_only, exploration=0.0001)
     if obstacles:
         assert (want > 1e6).sum() > K // 20  # the obstacles are hit
+    assert np.isnan(want).all() if window == "nan_row0" else np.isfinite(want).all()
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=1e-3)
 
 
