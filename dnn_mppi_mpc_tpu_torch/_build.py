@@ -272,6 +272,8 @@ def load_kernels() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.dmm_chunk_scratch_floats.argtypes = [ctypes.c_int] * 3
     lib.dmm_chunk_scratch_floats.restype = ctypes.c_longlong
+    lib.dmm_rollout_group.argtypes = [ctypes.c_longlong]
+    lib.dmm_rollout_group.restype = ctypes.c_int
     for struct, size_fn in ((DmmArgs, lib.dmm_args_size),
                             (DmmFleetArgs, lib.dmm_fleet_args_size),
                             (DmmBicycleArgs, lib.dmm_bicycle_args_size),

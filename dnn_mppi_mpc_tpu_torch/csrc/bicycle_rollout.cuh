@@ -18,7 +18,8 @@
 // outline needs) are the pre-step values of step t + 1, so each step calls
 // sincosf once. The window search is split: lane j keeps the running min of
 // rows i ≡ j (mod G), then log2 G xor-shuffle rounds merge the partials into
-// the sequential scan's row (below); the 9 outline points are dealt over
+// the sequential scan's row (dmm_window_row, window_search.cuh, shared with
+// the diff-drive rollout); the 9 outline points are dealt over
 // the lanes (each tested against every obstacle) and ORed by a ballot. With hash ε, lane j draws the steps
 // t ≡ j (mod G) of its sample (the stream's counters unchanged) and hands
 // each out by shuffle at its step. ε is read from and written to (T, K, 2).
@@ -30,6 +31,7 @@
 #include <cstdint>
 
 #include "hash_normal.cuh"
+#include "window_search.cuh"
 
 constexpr int kOutlinePoints = 9;
 
@@ -71,53 +73,6 @@ __device__ __forceinline__ float dmm_bicycle_clip(float v, float lo, float hi) {
   // jnp.clip / torch.clamp semantics: NaN passes through
   v = v < lo ? lo : v;
   return v > hi ? hi : v;
-}
-
-constexpr unsigned kFullMask = 0xffffffffu;
-
-// The window row of the running min over the whole window, from lane
-// `lane`'s running min over rows i ≡ lane (mod G): the lane of row 0 starts
-// from row 0's d, NaN or not, every other lane from (+∞, W), and a row
-// replaces the partial only by a strict <. Rounds of xor shuffles then
-// merge (d, row): the smaller d wins, on a tie the smaller row, and a NaN
-// partial (only row 0's can be one) wins over all. That is the row of the
-// sequential scan (row 0 unless a later row is strictly less than all
-// before it), so every lane of the group returns it, with its d.
-template <int G>
-__device__ __forceinline__ int dmm_window_row(int W, int lane, float x, float y,
-                                              const float2* sxy, float* d_out) {
-  float dmin = INFINITY;
-  int imin = W;
-  int i = lane;
-  if (lane == 0) {
-    const float2 r = sxy[0];
-    const float dx = x - r.x;
-    const float dy = y - r.y;
-    dmin = dx * dx + dy * dy;
-    imin = 0;
-    i = G;
-  }
-  for (; i < W; i += G) {
-    const float2 r = sxy[i];
-    const float dx = x - r.x;
-    const float dy = y - r.y;
-    const float d = dx * dx + dy * dy;
-    if (d < dmin) {
-      dmin = d;
-      imin = i;
-    }
-  }
-#pragma unroll
-  for (int o = G / 2; o > 0; o >>= 1) {
-    const float od = __shfl_xor_sync(kFullMask, dmin, o, G);
-    const int oi = __shfl_xor_sync(kFullMask, imin, o, G);
-    if (od != od || (dmin == dmin && (od < dmin || (od == dmin && oi < imin)))) {
-      dmin = od;
-      imin = oi;
-    }
-  }
-  *d_out = dmin;
-  return imin;
 }
 
 // Stage cost of the group's sample at pose (x, y, yaw, v) with sin/cos
@@ -210,8 +165,8 @@ __device__ float dmm_bicycle_sample(const DmmBicycleArgs& p, int k, int lane, bo
         g1 = l10 * z0 + l11 * z1;
         if (active) reinterpret_cast<float2*>(p.eps)[at] = make_float2(g0, g1);
       }
-      e0 = __shfl_sync(kFullMask, g0, r, G);
-      e1 = __shfl_sync(kFullMask, g1, r, G);
+      e0 = dmm_group_shfl<G>(g0, r);
+      e1 = dmm_group_shfl<G>(g1, r);
     } else {
       const float2 e = reinterpret_cast<const float2*>(p.eps)[static_cast<size_t>(t) * K + k];
       e0 = e.x;

@@ -10,17 +10,31 @@
 // from rollout start (terminal cost at the initial positions), SUM or LAST
 // accumulation.
 //
-// Layout: one thread per sample k carries (x, y, yaw, S) in registers
-// through the T loop; ε is read from (T, K, 2) so neighbouring threads read
-// neighbouring addresses. The library is compiled with -fmad=false, so
-// every a*b+c here rounds twice, operation for operation like the plain
-// PyTorch version; sincosf/expf/sqrtf stay full precision.
+// Layout: a group of G consecutive lanes of a warp (G a power of two, 1 to
+// 8, a template constant; the launcher picks it from the launch's sample
+// count, mppi_kernels.cu) shares one sample k. Every lane of the group runs
+// the unicycle step on the same inputs, so every lane holds the same
+// (x, y, yaw, S) bit for bit. The window search is split: lane j keeps the
+// running min of rows i ≡ j (mod G), and log2 G xor-shuffle rounds merge the
+// partials into the sequential scan's row (dmm_window_row in
+// window_search.cuh, the race-car rollout's too), so S is the same for every
+// G, G = 1 (one thread a sample) included. With hash ε, lane j draws the
+// steps t ≡ j (mod G) of its sample (the stream's counters unchanged) and
+// hands each out by shuffle at its step; only the drawing lane stores it
+// (eps_mode 1). Injected ε is read from (T, K, 2), so neighbouring groups
+// read neighbouring addresses. Every lane computes every obstacle, in
+// obstacle order: the soft cost is a sum over the obstacles, and dealing it
+// over the lanes would change that sum's order. The library is compiled
+// with -fmad=false, so every a*b+c here rounds twice, operation for
+// operation like the plain PyTorch version; sincosf/expf/sqrtf stay full
+// precision.
 #pragma once
 
 #include <cstddef>
 #include <cstdint>
 
 #include "hash_normal.cuh"
+#include "window_search.cuh"
 
 // Argument block of every C entry point. Field order is mirrored by the
 // ctypes.Structure in dnn_mppi_mpc_tpu_torch/_build.py: pointers first,
@@ -50,11 +64,11 @@ struct DmmArgs {
   float* u_new;             // (T, 2)
   float* u_shift;           // (T, 2)
   float* finite;            // (1,) 1.0 when the update was applied
-  float* scratch;           // the K-blocked tick's chunk partials (dmm_chunk_scratch_floats)
+  float* scratch;           // the chunked reductions' partials (dmm_chunk_scratch_floats)
   // sizes and modes
   int K, T, W, n_obs;
   int k_blk;                // samples per noise-stream block (generated ε)
-  int eps_mode;             // 0 read, 1 generate and store, 2 generate only
+  int eps_mode;             // 0 read, 1 generate and store, 2 generate (and again in Σ w·ε)
   int iso_xy, last_only;
   int obs_mode;             // 0 circle, 1 soft
   int drift;                // obstacles move at (vx, vy) during the rollout
@@ -96,44 +110,20 @@ __device__ __forceinline__ float dmm_clip(float v, float lo, float hi) {
   return v > hi ? hi : v;
 }
 
-// Running-min nearest waypoint. ISO returns the min squared distance in
-// `dmin` (cost sw0·dmin); otherwise the winning row's (rx, ry).
-template <bool ISO>
-__device__ __forceinline__ void dmm_window_lookup(float xc, float yc, const float* win,
-                                                  int W, float* dmin, float* rx,
-                                                  float* ry, float* ryaw) {
-  float dx = xc - win[0];
-  float dy = yc - win[1];
-  float best = dx * dx + dy * dy;
-  float bx = win[0], by = win[1], byaw = win[2];
-  for (int i = 1; i < W; ++i) {
-    dx = xc - win[3 * i];
-    dy = yc - win[3 * i + 1];
-    const float d = dx * dx + dy * dy;
-    if (d < best) {
-      best = d;
-      byaw = win[3 * i + 2];
-      if (!ISO) {
-        bx = win[3 * i];
-        by = win[3 * i + 1];
-      }
-    }
-  }
-  *dmin = best;
-  *rx = bx;
-  *ry = by;
-  *ryaw = byaw;
-}
-
-template <bool ISO>
-__device__ __forceinline__ float dmm_tracking(float x, float y, float yaw, const float* win,
-                                              int W, float w0, float w1, float w2) {
-  float dmin, rx, ry, ryaw;
-  dmm_window_lookup<ISO>(x, y, win, W, &dmin, &rx, &ry, &ryaw);
-  const float eyaw = yaw - ryaw;
+// Tracking cost of the group's sample at (x, y, yaw) against the window's
+// running-min row: ISO w0·dmin + w2·Δyaw², else w0·Δx² + w1·Δy² + w2·Δyaw².
+// `sxy` and `syaw` are the window's (x, y) and yaw rows in shared memory.
+template <int G, bool ISO>
+__device__ __forceinline__ float dmm_tracking(int W, int lane, float x, float y, float yaw,
+                                              const float2* sxy, const float* syaw, float w0,
+                                              float w1, float w2) {
+  float dmin;
+  const int row = dmm_window_row<G>(W, lane, x, y, sxy, &dmin);
+  const float eyaw = yaw - syaw[row];
   if (ISO) return w0 * dmin + w2 * eyaw * eyaw;
-  const float ex = x - rx;
-  const float ey = y - ry;
+  const float2 r = sxy[row];
+  const float ex = x - r.x;
+  const float ey = y - r.y;
   return w0 * ex * ex + w1 * ey * ey + w2 * eyaw * eyaw;
 }
 
@@ -164,12 +154,16 @@ __device__ __forceinline__ float dmm_obstacle_cost(float xc, float yc, const flo
   return p.obs_mode == 0 ? pen * 1.0e7f : pen * p.soft_w;
 }
 
-// The cost S of sample k. `su`, `sa`, `swin`, `sobs` are the block's shared
-// copies of u, a, the window and the obstacles. GEN draws ε from the hash
-// stream and, when p.eps_mode == 1, stores it to p.eps.
-template <bool ISO, bool LAST, bool GEN>
-__device__ float dmm_rollout_sample(const DmmArgs& p, int k, const float* su, const float* sa,
-                                    const float* swin, const float* sobs) {
+// The cost S of sample k, in every lane of its group (`lane` its index in
+// the group); `active` is false for a group past K (it runs on sample K − 1
+// for the shuffles and stores nothing). `su`, `sa`, `sxy`, `syaw`, `sobs` are
+// the block's shared copies of u, a, the window's (x, y) and yaw rows and the
+// obstacles. GEN draws ε from the hash stream and, when p.eps_mode == 1,
+// stores it to p.eps.
+template <int G, bool ISO, bool LAST, bool GEN>
+__device__ float dmm_rollout_sample(const DmmArgs& p, int k, int lane, bool active,
+                                    const float* su, const float* sa, const float2* sxy,
+                                    const float* syaw, const float* sobs) {
   const int T = p.T, K = p.K;
   const float dt = p.dt;
   const float umin0 = p.u_min[0], umax0 = p.u_max[0];
@@ -194,17 +188,24 @@ __device__ float dmm_rollout_sample(const DmmArgs& p, int k, const float* su, co
 
   float x = p.x0[0], y = p.x0[1], yaw = p.x0[2];
   float S = 0.0f;
+  float g0 = 0.0f, g1 = 0.0f;  // GEN: this lane's ε of step t0 + lane
   for (int t = 0; t < T; ++t) {
     float e0, e1;
-    const size_t at = static_cast<size_t>(t) * K + k;
     if (GEN) {
-      float z0, z1;
-      dmm_hash_normal_pair(base, static_cast<uint32_t>(t) * p.k_blk + local, &z0, &z1);
-      e0 = l00 * z0;
-      e1 = l10 * z0 + l11 * z1;
-      if (p.eps_mode == 1) reinterpret_cast<float2*>(p.eps)[at] = make_float2(e0, e1);
+      const int r = t & (G - 1);
+      if (r == 0 && t + lane < T) {
+        const int td = t + lane;
+        float z0, z1;
+        dmm_hash_normal_pair(base, static_cast<uint32_t>(td) * p.k_blk + local, &z0, &z1);
+        g0 = l00 * z0;
+        g1 = l10 * z0 + l11 * z1;
+        if (p.eps_mode == 1 && active)
+          reinterpret_cast<float2*>(p.eps)[static_cast<size_t>(td) * K + k] = make_float2(g0, g1);
+      }
+      e0 = dmm_group_shfl<G>(g0, r);
+      e1 = dmm_group_shfl<G>(g1, r);
     } else {
-      const float2 e = reinterpret_cast<const float2*>(p.eps)[at];
+      const float2 e = reinterpret_cast<const float2*>(p.eps)[static_cast<size_t>(t) * K + k];
       e0 = e.x;
       e1 = e.y;
     }
@@ -220,14 +221,15 @@ __device__ float dmm_rollout_sample(const DmmArgs& p, int k, const float* su, co
     y = y + v0 * s * dt;
     yaw = yaw + v1 * dt;
 
-    float cost = dmm_tracking<ISO>(x, y, yaw, swin, p.W, sw0, sw1, sw2);
+    float cost = dmm_tracking<G, ISO>(p.W, lane, x, y, yaw, sxy, syaw, sw0, sw1, sw2);
     cost = cost + sa[2 * t] * v0 + sa[2 * t + 1] * v1;
     if (has_cw) cost = cost + rc0 * v0 * v0 + rc1 * v1 * v1;
     if (p.n_obs > 0)
       cost = cost + dmm_obstacle_cost(x, y, sobs, p, p.drift != 0, static_cast<float>(t) * dt);
     S = LAST ? cost : S + cost;
   }
-  S = S + dmm_tracking<ISO>(x, y, yaw, swin, p.W, p.term_w[0], p.term_w[1], p.term_w[2]);
+  S = S + dmm_tracking<G, ISO>(p.W, lane, x, y, yaw, sxy, syaw, p.term_w[0], p.term_w[1],
+                               p.term_w[2]);
   if (p.n_obs > 0) S = S + dmm_obstacle_cost(x, y, sobs, p, false, 0.0f);
   return S;
 }

@@ -4,13 +4,17 @@ Counterpart of ``dnn_mppi_mpc_tpu/ops/pallas/mppi_tick.py:733
 diffdrive_mppi_tick`` (with ``:155 fused_epilogue_block``, ``:124
 effective_robot_radius`` and ``:134 pack_obstacles``). On CUDA tensors
 :func:`diffdrive_mppi_tick` launches ``dmm_mppi_tick``
-(csrc/mppi_kernels.cu: rollout, softmax statistics, Σw·ε, epilogue); on CPU
+(csrc/mppi_kernels.cu: the rollout with G lanes a sample, then the chunked
+softmax statistics, Σw·ε, and the chunk sum with the epilogue); on CPU
 tensors it runs :func:`diffdrive_mppi_tick_plain`.
 
 Noise: ε is injected (K, T, 2), or drawn from the hash stream of
 ``ops/cuda/mathx.py`` as one block of K samples — the same stream as the
 K-blocked tick with ``K_BLK = K`` and as the JAX blocked kernel with
-``gaussian="hash"``. The TPU's hardware Gaussians have no counterpart here.
+``gaussian="hash"``. Drawn ε is stored only when ``emit_eps`` asks for it;
+otherwise Σw·ε draws it again (the same bits, summed in the same order, so
+both give the same results). The TPU's hardware Gaussians have no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -105,10 +109,17 @@ diffdrive_mppi_tick_plain.calls = 0
 
 
 def chunk_scratch_floats(K: int, k_blk: int, T: int) -> int:
-    """The floats of scratch the K-blocked tick's chunked reductions need,
-    as the library computes them (``dmm_chunk_scratch_floats``; the chunk
-    layout lives in csrc/mppi_reductions.cuh alone)."""
+    """The floats of scratch the fused and K-blocked ticks' chunked
+    reductions need, as the library computes them
+    (``dmm_chunk_scratch_floats``; the chunk layout lives in
+    csrc/mppi_reductions.cuh alone)."""
     return load_kernels().dmm_chunk_scratch_floats(K, k_blk, T)
+
+
+def rollout_group(samples: int) -> int:
+    """The lanes a sample the diff-drive rollout runs with in a launch of
+    ``samples`` samples (all members together): the library's rule."""
+    return load_kernels().dmm_rollout_group(samples)
 
 
 def launch_tick(
@@ -119,9 +130,10 @@ def launch_tick(
     k_offset=0.0, block_offset=0, s_only=False,
 ):
     """Check the inputs, allocate the outputs and scratch and launch
-    ``dmm_mppi_tick``. Returns a dict of the output tensors (``eps`` is the
-    (T, K, 2) buffer, None when ε is regenerated; with ``s_only`` only S is
-    written)."""
+    ``dmm_mppi_tick``. ``eps_mode``: 0 ε injected, 1 drawn and stored, 2
+    drawn (and drawn again in Σw·ε). Returns a dict of the output tensors
+    (``eps`` is the (T, K, 2) buffer, None when ε is drawn again; with
+    ``s_only`` only S is written)."""
     if collision not in _OBS_MODES:
         raise ValueError(f"collision must be 'circle' or 'soft', got {collision!r}")
     dev = u.device
@@ -167,7 +179,7 @@ def launch_tick(
     )
     if eps_mode != 0:
         fields["seed"] = check_seed(seed, dev)
-    if eps_mode == 2 and not s_only:
+    if not s_only:
         n = chunk_scratch_floats(K, k_blk, T)
         out["scratch"] = torch.empty(n, dtype=torch.float32, device=dev)
         fields.update(scratch=out["scratch"].data_ptr(), scratch_floats=n)
@@ -240,7 +252,7 @@ def diffdrive_mppi_tick(
         soft_safety_distance=soft_safety_distance, soft_weight=soft_weight,
         control_weight=control_weight,
         filter_t=filter_t if fuse_epilogue else None,
-        eps=eps, eps_mode=0 if eps is not None else 1, k_blk=K,
+        eps=eps, eps_mode=0 if eps is not None else (1 if emit_eps else 2), k_blk=K,
         K=K, T=T, W=W, last_only=last_only, collision=collision, iso_xy=iso_xy,
     )
     diffdrive_mppi_tick.launches += 1
@@ -261,4 +273,5 @@ __all__ = [
     "fused_epilogue_plain",
     "launch_tick",
     "pack_obstacles",
+    "rollout_group",
 ]

@@ -12,12 +12,14 @@ Counterpart of ``dnn_mppi_mpc_tpu/ops/pallas/mppi_tick_blocked.py``:
   and then grid passes over chunks of K give each chunk its min and its
   Σ exp(−λ(S − min)), merged into ρ and η in chunk order, and Σw·ε on a
   grid of chunks × steps draws ε again from the stream instead of reading
-  a stored (T, K, 2) buffer (csrc/mppi_reductions.cuh). ``s_only`` stops
-  after the rollout: phase 1 of the sharded tick.
+  a stored (T, K, 2) buffer (csrc/mppi_reductions.cuh; the fused tick's
+  reductions too). ``s_only`` stops after the rollout: phase 1 of the
+  sharded tick.
 * :func:`weighted_noise_reduce` (``:475``): Σₖ wₖ·εₖ with ε drawn again from
   the same stream, phase 2 of the sharded tick.
 * :func:`fleet_mppi_tick` (``:618``): B complete ticks in one call, member b
-  drawing its ε from ``seeds[b]`` (one block of K samples).
+  drawing its ε from ``seeds[b]`` (one block of K samples); the rollout,
+  the softmax and Σw·ε each one grid over all members.
 
 On CUDA tensors each wrapper launches its kernel (``dmm_mppi_tick``,
 ``dmm_weighted_noise_reduce``, ``dmm_fleet_mppi_tick`` in
@@ -228,6 +230,42 @@ def fleet_mppi_tick_plain(
 fleet_mppi_tick_plain.calls = 0
 
 
+def launch_fleet(seeds, u, a, chol_sigma, x0, windows, stage_w, term_w, u_min, u_max, dt,
+                 n_exploit, inv_temperature, obstacles, robot_radius, safety_margin_rate,
+                 obstacle_velocities, soft_safety_distance, soft_weight, *, B: int, K: int,
+                 T: int, W: int, last_only: bool, collision: str, iso_xy: bool):
+    """Check the inputs, allocate the outputs and launch
+    ``dmm_fleet_mppi_tick``. Returns ``(S, w, w_eps)``."""
+    dev = u.device
+    obs, n_obs = pack_obstacles(obstacles, obstacle_velocities)
+    S = torch.empty((B, K), dtype=torch.float32, device=dev)
+    w = torch.empty((B, K), dtype=torch.float32, device=dev)
+    w_eps = torch.empty((B, T, 2), dtype=torch.float32, device=dev)
+    stats = torch.empty((B, 2), dtype=torch.float32, device=dev)
+    member = DmmArgs(
+        seed=check_seed(seeds, dev, B),
+        u=check("u", u, (B, T, 2), dev),
+        a=check("a", a, (B, T, 2), dev),
+        chol=check("chol_sigma", chol_sigma, (2, 2), dev),
+        x0=check("x0", x0, (B, 3), dev),
+        window=check("windows", windows, (B, W, 3), dev),
+        stage_w=check("stage_w", stage_w, (3,), dev),
+        term_w=check("term_w", term_w, (3,), dev),
+        u_min=check("u_min", u_min, (2,), dev),
+        u_max=check("u_max", u_max, (2,), dev),
+        obstacles=check("obstacles", obs, (B, n_obs, 5), dev),
+        S=S.data_ptr(), w=w.data_ptr(), w_eps=w_eps.data_ptr(), stats=stats.data_ptr(),
+        K=K, T=T, W=W, n_obs=n_obs, k_blk=K, eps_mode=2, iso_xy=int(iso_xy),
+        last_only=int(last_only), obs_mode=_OBS_MODES[collision],
+        drift=int(obstacle_velocities is not None),
+        dt=f32(dt), n_exploit=f32(n_exploit), inv_temp=f32(inv_temperature),
+        obs_radius=f32(effective_robot_radius(robot_radius, safety_margin_rate)),
+        soft_dist=f32(soft_safety_distance), soft_w=f32(soft_weight),
+    )
+    launch("dmm_fleet_mppi_tick", DmmFleetArgs(m=member, B=B), dev)
+    return S, w, w_eps
+
+
 def fleet_mppi_tick(
     seeds: torch.Tensor,  # (B,) int64 holding uint32 per-member seeds
     u: torch.Tensor,  # (B, T, 2) per-member nominal sequences
@@ -273,33 +311,11 @@ def fleet_mppi_tick(
             obstacle_velocities, soft_safety_distance, soft_weight, B=B, K=K, T=T, W=W,
             last_only=last_only, collision=collision, iso_xy=iso_xy,
         )
-    dev = u.device
-    obs, n_obs = pack_obstacles(obstacles, obstacle_velocities)
-    S = torch.empty((B, K), dtype=torch.float32, device=dev)
-    w = torch.empty((B, K), dtype=torch.float32, device=dev)
-    w_eps = torch.empty((B, T, 2), dtype=torch.float32, device=dev)
-    stats = torch.empty((B, 2), dtype=torch.float32, device=dev)
-    member = DmmArgs(
-        seed=check_seed(seeds, dev, B),
-        u=check("u", u, (B, T, 2), dev),
-        a=check("a", a, (B, T, 2), dev),
-        chol=check("chol_sigma", chol_sigma, (2, 2), dev),
-        x0=check("x0", x0, (B, 3), dev),
-        window=check("windows", windows, (B, W, 3), dev),
-        stage_w=check("stage_w", stage_w, (3,), dev),
-        term_w=check("term_w", term_w, (3,), dev),
-        u_min=check("u_min", u_min, (2,), dev),
-        u_max=check("u_max", u_max, (2,), dev),
-        obstacles=check("obstacles", obs, (B, n_obs, 5), dev),
-        S=S.data_ptr(), w=w.data_ptr(), w_eps=w_eps.data_ptr(), stats=stats.data_ptr(),
-        K=K, T=T, W=W, n_obs=n_obs, k_blk=K, eps_mode=2, iso_xy=int(iso_xy),
-        last_only=int(last_only), obs_mode=_OBS_MODES[collision],
-        drift=int(obstacle_velocities is not None),
-        dt=f32(dt), n_exploit=f32(n_exploit), inv_temp=f32(inv_temperature),
-        obs_radius=f32(effective_robot_radius(robot_radius, safety_margin_rate)),
-        soft_dist=f32(soft_safety_distance), soft_w=f32(soft_weight),
-    )
-    launch("dmm_fleet_mppi_tick", DmmFleetArgs(m=member, B=B), dev)
+    S, w, w_eps = launch_fleet(
+        seeds, u, a, chol_sigma, x0, windows, stage_w, term_w, u_min, u_max, dt, n_exploit,
+        inv_temperature, obstacles, robot_radius, safety_margin_rate, obstacle_velocities,
+        soft_safety_distance, soft_weight, B=B, K=K, T=T, W=W, last_only=last_only,
+        collision=collision, iso_xy=iso_xy)
     fleet_mppi_tick.launches += 1
     return S, w, w_eps
 

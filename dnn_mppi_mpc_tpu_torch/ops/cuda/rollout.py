@@ -39,6 +39,36 @@ def diffdrive_rollout_costs_plain(
 diffdrive_rollout_costs_plain.calls = 0
 
 
+def launch_rollout(eps, u, a, x0, window, stage_w, term_w, u_min, u_max, dt, n_exploit,
+                   obstacles, robot_radius, safety_margin_rate, k_offset, *, T: int, W: int,
+                   last_only: bool) -> torch.Tensor:
+    """Check the inputs, allocate S and launch ``dmm_rollout_costs``."""
+    dev = u.device
+    K = eps.shape[0]
+    check("eps", eps, (K, T, 2), dev)
+    eps_t = eps.transpose(0, 1).contiguous()  # (T, K, 2): coalesced per step
+    obs, n_obs = pack_obstacles(obstacles, None)
+    S = torch.empty(K, dtype=torch.float32, device=dev)
+    args = DmmArgs(
+        u=check("u", u, (T, 2), dev),
+        a=check("a", a, (T, 2), dev),
+        x0=check("x0", x0, (3,), dev),
+        window=check("window", window, (W, 3), dev),
+        stage_w=check("stage_w", stage_w, (3,), dev),
+        term_w=check("term_w", term_w, (3,), dev),
+        u_min=check("u_min", u_min, (2,), dev),
+        u_max=check("u_max", u_max, (2,), dev),
+        obstacles=check("obstacles", obs, (n_obs, 5), dev),
+        eps=eps_t.data_ptr(),
+        S=S.data_ptr(),
+        K=K, T=T, W=W, n_obs=n_obs, eps_mode=0, last_only=int(last_only),
+        dt=f32(dt), n_exploit=f32(n_exploit), k_offset=f32(k_offset),
+        obs_radius=f32(effective_robot_radius(robot_radius, safety_margin_rate)),
+    )
+    launch("dmm_rollout_costs", args, dev)
+    return S
+
+
 def diffdrive_rollout_costs(
     eps: torch.Tensor,  # (K, T, 2) noise
     u: torch.Tensor,  # (T, 2) nominal sequence
@@ -67,29 +97,9 @@ def diffdrive_rollout_costs(
             obstacles, robot_radius, safety_margin_rate, k_offset,
             T=T, W=W, last_only=last_only,
         )
-    dev = u.device
-    K = eps.shape[0]
-    check("eps", eps, (K, T, 2), dev)
-    eps_t = eps.transpose(0, 1).contiguous()  # (T, K, 2): coalesced per step
-    obs, n_obs = pack_obstacles(obstacles, None)
-    S = torch.empty(K, dtype=torch.float32, device=dev)
-    args = DmmArgs(
-        u=check("u", u, (T, 2), dev),
-        a=check("a", a, (T, 2), dev),
-        x0=check("x0", x0, (3,), dev),
-        window=check("window", window, (W, 3), dev),
-        stage_w=check("stage_w", stage_w, (3,), dev),
-        term_w=check("term_w", term_w, (3,), dev),
-        u_min=check("u_min", u_min, (2,), dev),
-        u_max=check("u_max", u_max, (2,), dev),
-        obstacles=check("obstacles", obs, (n_obs, 5), dev),
-        eps=eps_t.data_ptr(),
-        S=S.data_ptr(),
-        K=K, T=T, W=W, n_obs=n_obs, eps_mode=0, last_only=int(last_only),
-        dt=f32(dt), n_exploit=f32(n_exploit), k_offset=f32(k_offset),
-        obs_radius=f32(effective_robot_radius(robot_radius, safety_margin_rate)),
-    )
-    launch("dmm_rollout_costs", args, dev)
+    S = launch_rollout(eps, u, a, x0, window, stage_w, term_w, u_min, u_max, dt, n_exploit,
+                       obstacles, robot_radius, safety_margin_rate, k_offset, T=T, W=W,
+                       last_only=last_only)
     diffdrive_rollout_costs.launches += 1
     return S
 

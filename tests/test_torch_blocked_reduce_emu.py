@@ -8,12 +8,18 @@ drives the K-blocked tick (eps_mode 2) through ctypes on CPU tensors with
 its real argument block and the scratch the library sizes
 (``dmm_chunk_scratch_floats``): the rollout, then the online softmax over C
 chunks of K and Σ w·ε on the (C, ⌈T/5⌉) grid with ε drawn again, the
-chunks' partials summed in chunk order. At a small K of several chunks (one
-chunk a noise-stream block, three chunks in one block with the last one
-shorter, two full chunks at an offset block, two groups of steps) ρ, η, w
-and Σ w·ε must match ``softmax_plain`` and ``weighted_noise_plain`` on the
-kernel's own S, and S the plain rollout, within ``chip_smoke.py``'s TOL; a
-second call must repeat the first bit for bit. Skips without g++.
+chunks' partials summed in chunk order. The library sizes the chunks from
+the launch (the first layout of samples a thread and steps a block whose
+Σ w·ε grid reaches 264 blocks), so at these small K every chunk is the
+smallest, 256 samples or its noise-stream block, and every block does one
+step: one chunk a block, three in one block with the last one shorter, two
+full chunks at an offset block, two groups of steps. ρ, η, w and Σ w·ε must
+match ``softmax_plain`` and ``weighted_noise_plain`` on the kernel's own S,
+and S the plain rollout, within ``chip_smoke.py``'s TOL; a second call must
+repeat the first bit for bit. Chunks of several samples a thread and several
+steps a block run on the CPU in ``test_torch_diffdrive_kernel_emu.py`` (a
+build with a smaller fill target) and on the card (``chip_smoke.py``: the
+pod-K tick's 2 048 samples and five steps). Skips without g++.
 """
 
 from __future__ import annotations
@@ -93,13 +99,13 @@ def _close(name, got, want):
 
 
 # (K, k_blk, T, block offset): chunks of one noise-stream block each (C = 3);
-# a 4 480-sample block in three chunks of 1 494, 1 494 and 1 492; two full
-# 2 048-sample chunks at an offset block; T = 7 over two groups of five steps
+# a 640-sample block in three chunks of 214, 214 and 212; two full
+# 256-sample chunks at an offset block; T = 2 over two groups of one step
 CASES = {
     "C3 one chunk a block": (384, 128, 4, 0),
-    "C3 ragged in one block": (4480, 4480, 2, 0),
-    "C2 full chunks offset": (4096, 2048, 3, 5),
-    "C2 two step groups": (256, 128, 7, 2),
+    "C3 ragged in one block": (640, 640, 2, 0),
+    "C2 full chunks offset": (512, 256, 3, 5),
+    "C2 two step groups": (256, 128, 2, 2),
 }
 
 
@@ -126,11 +132,13 @@ def test_chunked_reductions_match_plain(emu, case, inv_t):
 
 
 # (K, k_blk, T) -> floats: 2 per chunk (m_c, s_c) and a (T, C, 2) partial;
-# -1 where K is no multiple of k_blk. The pod-K tick: 10 blocks of 10 240
-# samples, five chunks each.
+# -1 where K is no multiple of k_blk. A 4 480-sample block at T = 2 in 18
+# chunks of 249 (247 the last): a grid of 18 blocks never reaches the fill
+# target, so the chunks are the smallest. The pod-K tick: 10 blocks of
+# 10 240 samples, five chunks each (its grid of 500 blocks fills the card).
 SCRATCH = {
     (384, 128, 4): 2 * 3 + 4 * 3 * 2,
-    (4480, 4480, 2): 2 * 3 + 2 * 3 * 2,
+    (4480, 4480, 2): 2 * 18 + 2 * 18 * 2,
     (102400, 10240, 50): 2 * 50 + 50 * 50 * 2,
     (1000, 384, 3): -1,
 }
