@@ -111,13 +111,13 @@ class DmmGenericArgs(ctypes.Structure):
         for name in (
             "seed", "u", "a", "chol", "x0", "window", "stage_w", "term_w",
             "u_min", "u_max", "obstacles", "filter_t", "eps", "S", "w", "w_eps",
-            "stats", "u_new", "u_shift", "finite",
+            "stats", "u_new", "u_shift", "finite", "scratch",
         )
     ] + [
         (name, ctypes.c_int)
         for name in (
             "model", "K", "T", "W", "n_track", "n_obs", "eps_mode", "last_only",
-            "obs_mode", "drift", "wrap_yaw", "fuse_epilogue",
+            "obs_mode", "drift", "wrap_yaw", "fuse_epilogue", "scratch_floats",
         )
     ] + [
         (name, ctypes.c_float)
@@ -274,6 +274,10 @@ def load_kernels() -> ctypes.CDLL:
     lib.dmm_chunk_scratch_floats.restype = ctypes.c_longlong
     lib.dmm_rollout_group.argtypes = [ctypes.c_longlong]
     lib.dmm_rollout_group.restype = ctypes.c_int
+    lib.dmm_generic_scratch_floats.argtypes = [ctypes.c_int] * 3
+    lib.dmm_generic_scratch_floats.restype = ctypes.c_longlong
+    lib.dmm_generic_group.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
+    lib.dmm_generic_group.restype = ctypes.c_int
     for struct, size_fn in ((DmmArgs, lib.dmm_args_size),
                             (DmmFleetArgs, lib.dmm_fleet_args_size),
                             (DmmBicycleArgs, lib.dmm_bicycle_args_size),

@@ -17,12 +17,25 @@
 // the Python factory (dnn_mppi_mpc_tpu_torch/models/tile.py). The kernels
 // are templates on the functor, so each family compiles to its own rollout.
 //
-// Layout: one thread per sample k carries its state and S in registers; ε
-// is (T, K, NU), so neighbouring threads read neighbouring addresses. The
-// library is built with -fmad=false, so every a*b+c rounds twice, like the
-// plain PyTorch version (ops/cuda/generic_tick.py); sincosf/tanf/sinf/cosf
-// stay full precision, and atan is the polynomial of models/tile.py, never
-// atanf.
+// Layout: the diff-drive rollout's (diffdrive_rollout.cuh). A group of G
+// consecutive lanes of a warp (G a power of two, a template constant; the
+// launcher picks it, generic_kernels.cu) shares one sample k. Every lane of
+// the group runs the tile step on the same inputs, so every lane holds the
+// same state and S bit for bit. The window search is split: lane j keeps the
+// running min of rows i ≡ j (mod G) over the window's (x, y) rows, staged as
+// float2, and dmm_window_row merges the partials into the sequential scan's
+// row; the tracking sum then reads that row's n_track columns in dimension
+// order, so S is the same for every G, G = 1 (one thread a sample) included.
+// With hash ε, lane j draws the ⌈NU/2⌉ normal pairs of the steps t ≡ j
+// (mod G) (the stream's counters unchanged), colours them and hands the NU
+// values out by shuffle at their step; only the drawing lane stores them
+// (eps_mode 1). Injected ε is read from (T, K, NU) a step ahead, so that
+// the load waits off the state's chain: the lanes of a group read one
+// address, neighbouring groups neighbouring ones. Every lane computes
+// every obstacle, in obstacle order. The library is built with -fmad=false,
+// so every a*b+c rounds twice, like the plain PyTorch version
+// (ops/cuda/generic_tick.py); sincosf/tanf/sinf/cosf stay full precision,
+// and atan is the polynomial of models/tile.py, never atanf.
 #pragma once
 
 #include <cstddef>
@@ -58,6 +71,7 @@ struct DmmGenericArgs {
   float* u_new;             // (T, NU)
   float* u_shift;           // (T, NU)
   float* finite;            // (1,) 1.0 when the update was applied
+  float* scratch;           // the chunked reductions' partials (dmm_generic_scratch_floats)
   // sizes and modes
   int model;                // 0 unicycle, 1 kinematic bicycle, 2 four-wheel torque,
                             // 3 dynamic bicycle (tile.FAMILIES)
@@ -68,6 +82,7 @@ struct DmmGenericArgs {
   int drift;                // obstacles move at (vx, vy) during the rollout
   int wrap_yaw;             // wrap state dim 2 before differencing
   int fuse_epilogue;
+  int scratch_floats;       // floats at scratch
   float dt;                 // the config's dt (obstacle drift)
   float n_exploit, k_offset, inv_temp;
   float obs_radius;         // effective robot radius (circle mode)
@@ -173,45 +188,62 @@ struct DmmDynamicBicycleTile {
 
 // --- the cost ----------------------------------------------------------------
 
-// Tracking cost of the state x against the nearest row of the (W, n_track)
-// window; w holds the n_track weights (zero past n_track).
-template <int NX>
-__device__ __forceinline__ float dmm_generic_tracking(const float* x, const float* win, int W,
+// Tracking cost of the group's sample at state x against the window's
+// running-min row over (x, y) (dmm_window_row): Σ_i w_i (x_i − ref_i)² over
+// the first n_track dims in dimension order; w holds the n_track weights
+// (zero past n_track). `sxy` is the window's (x, y) rows, `srest` its other
+// n_track − 2 columns, row-major (W, n_track − 2).
+template <int G, int NX>
+__device__ __forceinline__ float dmm_generic_tracking(const float* x, int W, int lane,
+                                                      const float2* sxy, const float* srest,
                                                       int n_track, const float* w, bool wrap) {
-  float dx = x[0] - win[0];
-  float dy = x[1] - win[1];
-  float best = dx * dx + dy * dy;
-  int row = 0;
-  for (int r = 1; r < W; ++r) {
-    dx = x[0] - win[r * n_track];
-    dy = x[1] - win[r * n_track + 1];
-    const float d = dx * dx + dy * dy;
-    if (d < best) {
-      best = d;
-      row = r;
-    }
-  }
-  const float* ref = win + row * n_track;
+  float dmin;
+  const int row = dmm_window_row<G>(W, lane, x[0], x[1], sxy, &dmin);
+  const float2 r = sxy[row];
+  const float* rest = srest + row * (n_track - 2);
   float c = 0.0f;
 #pragma unroll
   for (int i = 0; i < NX; ++i) {
     if (i < n_track) {
       float xi = x[i];
       if (i == 2 && wrap) xi = xi - kGenericTwoPi * floorf(xi * kGenericInvTwoPi);
-      const float e = xi - ref[i];
+      const float e = xi - (i == 0 ? r.x : i == 1 ? r.y : rest[i - 2]);
       c = c + w[i] * e * e;
     }
   }
   return c;
 }
 
-// The cost S of sample k. `su`, `sa`, `swin`, `sobs` are the block's shared
-// copies of u, a (T, NU each), the (W, n_track) window and the obstacles.
-// GEN draws ε from the hash stream (one block of K samples, seed p.seed[0])
-// and, when p.eps_mode == 1, stores it to p.eps.
-template <class F, bool LAST, bool GEN>
-__device__ float dmm_generic_sample(const DmmGenericArgs& p, int k, const float* su,
-                                    const float* sa, const float* swin, const float* sobs) {
+// The NU floats of an injected ε row (T, K, NU) at `at`.
+template <int NU>
+__device__ __forceinline__ void dmm_generic_eps_row(const float* at, float* e) {
+  if constexpr (NU == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(at);
+    e[0] = v.x;
+    e[1] = v.y;
+  } else if constexpr (NU == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(at);
+    e[0] = v.x;
+    e[1] = v.y;
+    e[2] = v.z;
+    e[3] = v.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < NU; ++j) e[j] = at[j];
+  }
+}
+
+// The cost S of sample k, in every lane of its group (`lane` its index in
+// the group); `active` is false for a group past K (it runs on sample K − 1
+// for the shuffles and stores nothing). `su`, `sa`, `sxy`, `srest`, `sobs`
+// are the block's shared copies of u, a (T, NU each), the window's (x, y)
+// rows and other columns and the obstacles. GEN draws ε from the hash stream
+// (one block of K samples, seed p.seed[0]) and, when p.eps_mode == 1, stores
+// it to p.eps.
+template <int G, class F, bool LAST, bool GEN>
+__device__ float dmm_generic_sample(const DmmGenericArgs& p, int k, int lane, bool active,
+                                    const float* su, const float* sa, const float2* sxy,
+                                    const float* srest, const float* sobs) {
   constexpr int NX = F::NX, NU = F::NU;
   const F f(p.c);
   const int T = p.T, K = p.K;
@@ -241,20 +273,32 @@ __device__ float dmm_generic_sample(const DmmGenericArgs& p, int k, const float*
 #pragma unroll
   for (int i = 0; i < NX; ++i) x[i] = p.x0[i];
   float S = 0.0f;
+  float g[NU];   // GEN: this lane's ε of step t0 + lane
+  float en[NU];  // injected: the next step's row, loaded a step ahead, off the state's chain
+#pragma unroll
+  for (int j = 0; j < NU; ++j) g[j] = 0.0f;
+  if (!GEN) dmm_generic_eps_row<NU>(p.eps + static_cast<size_t>(k) * NU, en);
   for (int t = 0; t < T; ++t) {
     float e[NU];
-    float* at = p.eps + (static_cast<size_t>(t) * K + k) * NU;
     if (GEN) {
-      float z[2 * ((NU + 1) / 2)];
-      dmm_hash_normals<NU>(base, t, T, K, static_cast<uint32_t>(k), z);
-      dmm_color<NU>(L, z, e);
-      if (p.eps_mode == 1) {
+      const int r = t & (G - 1);
+      if (r == 0 && t + lane < T) {
+        const int td = t + lane;
+        float z[2 * ((NU + 1) / 2)];
+        dmm_hash_normals<NU>(base, td, T, K, static_cast<uint32_t>(k), z);
+        dmm_color<NU>(L, z, g);
+        if (p.eps_mode == 1 && active) {
+          float* at = p.eps + (static_cast<size_t>(td) * K + k) * NU;
 #pragma unroll
-        for (int j = 0; j < NU; ++j) at[j] = e[j];
+          for (int j = 0; j < NU; ++j) at[j] = g[j];
+        }
       }
+#pragma unroll
+      for (int j = 0; j < NU; ++j) e[j] = dmm_group_shfl<G>(g[j], r);
     } else {
 #pragma unroll
-      for (int j = 0; j < NU; ++j) e[j] = at[j];
+      for (int j = 0; j < NU; ++j) e[j] = en[j];
+      if (t + 1 < T) dmm_generic_eps_row<NU>(p.eps + (static_cast<size_t>(t + 1) * K + k) * NU, en);
     }
     float v[NU];
     float energy = 0.0f;
@@ -267,12 +311,13 @@ __device__ float dmm_generic_sample(const DmmGenericArgs& p, int k, const float*
       energy = j == 0 ? term : energy + term;
     }
     f.step(x, v);
-    float cost = dmm_generic_tracking<NX>(x, swin, p.W, p.n_track, sw, wrap) + energy;
+    float cost =
+        dmm_generic_tracking<G, NX>(x, p.W, lane, sxy, srest, p.n_track, sw, wrap) + energy;
     if (p.n_obs > 0)
       cost = cost + dmm_obstacle_cost(x[0], x[1], sobs, p, p.drift != 0, static_cast<float>(t) * p.dt);
     S = LAST ? cost : S + cost;
   }
-  S = S + dmm_generic_tracking<NX>(x, swin, p.W, p.n_track, tw, wrap);
+  S = S + dmm_generic_tracking<G, NX>(x, p.W, lane, sxy, srest, p.n_track, tw, wrap);
   if (p.n_obs > 0) S = S + dmm_obstacle_cost(x[0], x[1], sobs, p, false, 0.0f);
   return S;
 }

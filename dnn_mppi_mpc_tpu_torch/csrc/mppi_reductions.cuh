@@ -3,14 +3,14 @@
 // epilogue.
 //
 // Shared by the diff-drive ticks (mppi_kernels.cu), the bicycle tick
-// (bicycle_kernels.cu) and the generic tick (generic_kernels.cu); Σ w·ε and
-// the epilogue are templates on the control width NU. The one-block forms
-// (softmax_kernel, weighted_eps_kernel, epilogue_kernel) serve the bicycle
-// and generic ticks, the fleet and the sharded tick's weighted noise
-// reduce; the diff-drive fused and K-blocked ticks run the chunked forms
-// (launch_chunked_reductions): grid-wide passes over chunks of K sized from
-// the launch, each chunk's partial written to scratch and combined in chunk
-// order by one block, which also runs the epilogue. No atomics anywhere:
+// (bicycle_kernels.cu) and the generic tick (generic_kernels.cu). The
+// one-block forms (softmax_kernel, weighted_eps_kernel, two control dims)
+// serve the bicycle tick, the fleet and the sharded tick's weighted noise
+// reduce; the diff-drive fused and K-blocked ticks and the generic tick run
+// the chunked forms (launch_chunked_reductions, templates on the control
+// width NU): grid-wide passes over chunks of K sized from the launch, each
+// chunk's partial written to scratch and combined in chunk order by one
+// block, which also runs the epilogue. No atomics anywhere:
 // every sum is a fixed-order tree or loop, so results repeat bit for bit
 // from run to run. They take the few fields they read in DmmReduceArgs and
 // DmmEpilogueArgs, which each entry point fills from its own argument block.
@@ -92,14 +92,14 @@ __global__ void softmax_kernel(DmmReduceArgs p) {
   }
 }
 
-// w_eps[t] = Σₖ wₖ·ε[t, k] over the unclamped ε of NU control dimensions.
-// Block (t, b) does step t of member b ((B, K) w, (B, T, NU) w_eps, (B,)
-// seeds; stored ε is (T, K, NU) of one member). REGEN draws ε again from the
-// hash stream (dmm_hash_normals, colored by the (NU, NU) factor) instead of
-// reading the buffer. NU = 2 is the diff-drive and bicycle ticks' pass,
-// operation for operation as it was before the template.
-template <bool REGEN, int NU = 2>
+// w_eps[t] = Σₖ wₖ·ε[t, k] over the unclamped ε of the two control
+// dimensions. Block (t, b) does step t of member b ((B, K) w, (B, T, 2)
+// w_eps, (B,) seeds; stored ε is (T, K, 2) of one member). REGEN draws ε
+// again from the hash stream (dmm_hash_normal_pair, colored by the (2, 2)
+// factor) instead of reading the buffer.
+template <bool REGEN>
 __global__ void weighted_eps_kernel(DmmReduceArgs p) {
+  constexpr int NU = 2;
   __shared__ float red[NU][kWepsThreads];
   const int t = blockIdx.x, tid = threadIdx.x, T = gridDim.x;
   const size_t b = blockIdx.y;
@@ -120,26 +120,14 @@ __global__ void weighted_eps_kernel(DmmReduceArgs p) {
     if (REGEN) {
       const uint32_t blk = static_cast<uint32_t>(k / p.k_blk);
       const uint32_t local = static_cast<uint32_t>(k - static_cast<int>(blk) * p.k_blk);
-      float z[2 * ((NU + 1) / 2)];
+      float z[NU];
       dmm_hash_normals<NU>(dmm_stream_base(seed, blk + static_cast<uint32_t>(p.block_offset)),
                            t, T, p.k_blk, local, z);
       dmm_color<NU>(L, z, e);
     } else {
-      const float* src = p.eps + (static_cast<size_t>(t) * p.K + k) * NU;
-      if constexpr (NU == 2) {
-        const float2 v = *reinterpret_cast<const float2*>(src);
-        e[0] = v.x;
-        e[1] = v.y;
-      } else if constexpr (NU == 4) {
-        const float4 v = *reinterpret_cast<const float4*>(src);
-        e[0] = v.x;
-        e[1] = v.y;
-        e[2] = v.z;
-        e[3] = v.w;
-      } else {
-#pragma unroll
-        for (int j = 0; j < NU; ++j) e[j] = src[j];
-      }
+      const float2 v = reinterpret_cast<const float2*>(p.eps)[static_cast<size_t>(t) * p.K + k];
+      e[0] = v.x;
+      e[1] = v.y;
     }
     const float wk = w[k];
 #pragma unroll
@@ -176,8 +164,7 @@ struct DmmEpilogueArgs {
 // by the threads of one block, thread i owning rows i, i + blockDim.x, ….
 // `weps` is the (T, NU) Σ w·ε and `filter_t` the (T, T) Fᵀ (device or
 // shared memory), `un_s` NU·T floats of shared memory. Every thread of the
-// block calls it. NU = 2 is the diff-drive tick's epilogue, operation for
-// operation as it was before the template.
+// block calls it (the chunk sum's block, chunk_final_kernel).
 template <int NU>
 __device__ __forceinline__ void dmm_epilogue_rows(const DmmEpilogueArgs& e, const float* weps,
                                                   float* un_s, const float* filter_t) {
@@ -215,13 +202,6 @@ __device__ __forceinline__ void dmm_epilogue_rows(const DmmEpilogueArgs& e, cons
   if (threadIdx.x == 0) e.finite[0] = all_ok ? 1.0f : 0.0f;
 }
 
-// The epilogue alone (the generic tick): one block.
-template <int NU>
-__global__ void epilogue_kernel(DmmEpilogueArgs p) {
-  extern __shared__ float un_s[];  // (T, NU)
-  dmm_epilogue_rows<NU>(p, p.w_eps, un_s, p.filter_t);
-}
-
 // Whether the chunk sum's epilogue stages Fᵀ in shared memory beside its
 // (T, NU) w_eps and u_new: when all three fit under the static limit
 // (T ≤ 104 at NU = 2).
@@ -229,30 +209,22 @@ __host__ __device__ inline bool epilogue_stages_filter(int T, int NU) {
   return static_cast<long long>(2 * NU * T + T * T) * sizeof(float) <= kMaxSmemBytes;
 }
 
-// The epilogue on stream s (T <= 1024); the launch error.
-template <int NU>
-cudaError_t launch_epilogue(const DmmEpilogueArgs& e, cudaStream_t s) {
-  const int threads = ((e.T + 31) / 32) * 32;
-  epilogue_kernel<NU><<<1, threads, NU * e.T * sizeof(float), s>>>(e);
-  return cudaGetLastError();
-}
-
 // Softmax, then Σ w·ε over (T, B) blocks, for B members on stream s; the
 // first launch error.
-template <bool REGEN, int NU = 2>
+template <bool REGEN>
 cudaError_t launch_reductions(const DmmReduceArgs& r, int T, int B, cudaStream_t s) {
   softmax_kernel<<<B, kReduceThreads, 0, s>>>(r);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  weighted_eps_kernel<REGEN, NU><<<dim3(T, B), kWepsThreads, 0, s>>>(r);
+  weighted_eps_kernel<REGEN><<<dim3(T, B), kWepsThreads, 0, s>>>(r);
   return cudaGetLastError();
 }
 
-// --- the chunked reductions of the diff-drive ticks ---------------------------
+// --- the chunked reductions of the diff-drive and generic ticks -------------
 //
-// What bounds them. Σ w·ε draws 2·T·K normals again (~0.3 G hash operations
-// at pod-scale K = 102 400, T = 50; 0.03 G at the flagship's K = 10 240),
-// or reads the stored ε, and the softmax reads K costs twice: a few µs of
+// What bounds them. Σ w·ε draws NU·T·K normals again (~0.3 G hash
+// operations at pod-scale K = 102 400, T = 50, NU = 2; 0.03 G at the
+// flagship's K = 10 240), or reads the stored ε, and the softmax reads K costs twice: a few µs of
 // issue for the whole card, so each block's chain of dependent steps and
 // barriers sets the time. One block (the softmax) or T = 50 blocks (Σ w·ε)
 // leave most of the 132 SMs idle, so both run as grids over chunks of K: a
@@ -261,7 +233,9 @@ cudaError_t launch_reductions(const DmmReduceArgs& r, int T, int B, cudaStream_t
 // the launch (dmm_chunks): the first (samples a thread, steps a block) whose
 // Σ w·ε grid reaches kFillBlocks: (8, 5) at pod K (chunks of 2 048, five
 // steps a block, 500 blocks), (4, 1) at the flagship's K (chunks of 1 024,
-// one step, 500 blocks). One controller only: the fleet keeps the one-block
+// one step, 500 blocks; the generic tick at K = 10 240 too), (1, 1) at the
+// four-wheel example's K = 2 048, T = 25 (8 chunks of 256, 200 blocks). One
+// controller only: the fleet keeps the one-block
 // softmax a member and Σ w·ε on (T, B) blocks (launch_reductions), since a
 // member dimension here was slower on the card (root PERF.md §6).
 // The softmax is online: one pass gives each chunk its min m_c and

@@ -5,9 +5,14 @@ Counterpart of ``dnn_mppi_mpc_tpu/ops/pallas/generic_tick.py``:
 optional fused epilogue) and :func:`generic_rollout_costs` (``:665``: the
 rollout alone for one shard of the sample-sharded scan step, with the
 shard's ``k_offset``). On CUDA tensors they launch ``dmm_generic_tick`` and
-``dmm_generic_rollout_costs`` (csrc/generic_kernels.cu); on CPU tensors they
-run :func:`generic_mppi_tick_plain` and :func:`generic_rollout_costs_plain`,
-the same computation in plain PyTorch in the kernel's order of operations.
+``dmm_generic_rollout_costs`` (csrc/generic_kernels.cu: the rollout with G
+lanes a sample, G by the family, the ε route and the launch's sample count
+(:func:`rollout_group`); the tick then
+runs the chunked softmax statistics, Σw·ε, and the chunk sum with the
+epilogue, four launches in all) through :func:`launch_generic_tick` and
+:func:`launch_generic_rollout`; on CPU tensors they run
+:func:`generic_mppi_tick_plain` and :func:`generic_rollout_costs_plain`, the
+same computation in plain PyTorch in the kernel's order of operations.
 
 The kernel compiles in the four built-in tile-step families of
 ``models/tile.py``. A lifted step (``lift_dynamics``, family None), a
@@ -18,8 +23,10 @@ time-varying steps on CPU tensors.
 
 Noise: ε is injected (K, T, nu), or drawn from the hash stream of
 ``ops/cuda/mathx.py`` as one block of K samples (pair p of sample k at step
-t at counter (p·T + t)·K + k; for nu = 2 the diff-drive tick's stream). The
-Σw·ε pass draws the hash ε again instead of storing it.
+t at counter (p·T + t)·K + k; for nu = 2 the diff-drive tick's stream).
+Drawn ε is stored only when ``emit_eps`` asks for it; otherwise Σw·ε draws
+it again (the same bits, summed in the same order, so both routes give the
+same results).
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..._build import GENERIC_CONSTANTS, DmmGenericArgs, launch
+from ..._build import GENERIC_CONSTANTS, DmmGenericArgs, launch, load_kernels
 from ...models.tile import FAMILIES
 from . import common
 from .common import (
@@ -45,7 +52,9 @@ _INV_TWO_PI = f32(1.0 / (2.0 * np.pi))
 
 def check_staging(T: int, W: int, n_track: int, nu: int, n_obs: int) -> None:
     """Raise unless the generic kernels can stage u, a (T, nu each), the
-    (W, n_track) window and the (n, 5) obstacles in shared memory."""
+    window's (x, y) rows (float2) and its other n_track − 2 columns, and the
+    (n, 5) obstacles in shared memory (``generic_smem_bytes``; the (x, y)
+    rows follow 2·nu·T floats, an even count, so they need no padding)."""
     common.check_staging("generic", 2 * nu * T + n_track * W + 5 * n_obs,
                          f"u, a, the (W={W}, {n_track}) window and {n_obs} obstacles")
 
@@ -182,16 +191,19 @@ def _plain_rollout(eps, u, a, x0, window, stage_w, term_w, u_min, u_max, dt, n_e
 def _fill_args(*, model, step_tile, u, a, x0, window, stage_w, term_w, u_min, u_max, dt,
                n_exploit, obstacles, obstacle_velocities, robot_radius, safety_margin_rate,
                soft_safety_distance, soft_weight, k_offset, nx, nu, n_track, K, T, W,
-               wrap_yaw, last_only, collision) -> dict:
-    """The fields of ``DmmGenericArgs`` both entry points share, checked."""
+               wrap_yaw, last_only, collision) -> tuple[dict, tuple]:
+    """The fields of ``DmmGenericArgs`` both entry points share, checked, and
+    the tensors made here whose pointers they hold (the packed obstacles, the
+    window's rows): the caller keeps those until the launch."""
     dev = u.device
     obs, n_obs = pack_obstacles(obstacles, obstacle_velocities)
+    win = _window(window, W, n_track)
     check_staging(T, W, n_track, nu, n_obs)
-    return dict(
+    fields = dict(
         u=check("u", u, (T, nu), dev),
         a=check("a", a, (T, nu), dev),
         x0=check("x0", x0, (nx,), dev),
-        window=check("window", window, (W, n_track), dev),
+        window=check("window", win, (W, n_track), dev),
         stage_w=check("stage_w", stage_w, (n_track,), dev),
         term_w=check("term_w", term_w, (n_track,), dev),
         u_min=check("u_min", u_min, (nu,), dev),
@@ -205,6 +217,7 @@ def _fill_args(*, model, step_tile, u, a, x0, window, stage_w, term_w, u_min, u_
         soft_dist=f32(soft_safety_distance), soft_w=f32(soft_weight),
         c=_constants(step_tile),
     )
+    return fields, (obs, win)
 
 
 def _window(window: torch.Tensor, W: int, n_track: int) -> torch.Tensor:
@@ -236,6 +249,50 @@ def generic_rollout_costs_plain(
 
 
 generic_rollout_costs_plain.calls = 0
+
+
+def scratch_floats(K: int, T: int, nu: int) -> int:
+    """The floats of scratch the generic tick's chunked reductions need, as
+    the library computes them (``dmm_generic_scratch_floats``; the chunk
+    layout lives in csrc/mppi_reductions.cuh alone)."""
+    return load_kernels().dmm_generic_scratch_floats(K, T, nu)
+
+
+def rollout_group(family: str, samples: int, hash_eps: bool) -> int:
+    """The lanes a sample the generic rollout of ``family`` runs with in a
+    launch of ``samples`` samples, ε drawn from the hash stream (the tick
+    without injected ε) or injected: the library's rule."""
+    return load_kernels().dmm_generic_group(FAMILIES.index(family), samples, int(hash_eps))
+
+
+def launch_generic_rollout(
+    *, eps, u, a, x0, window, stage_w, term_w, u_min, u_max, dt, n_exploit, obstacles,
+    robot_radius, safety_margin_rate, obstacle_velocities, soft_safety_distance, soft_weight,
+    k_offset, step_tile, nx, nu, n_track, T, W, wrap_yaw, last_only, collision,
+    step_takes_t=False,
+) -> torch.Tensor:
+    """Check the inputs, allocate S and launch ``dmm_generic_rollout_costs``
+    on injected ε (K_local, T, nu). Returns S (K_local,)."""
+    _check_args(step_tile, nx, nu, n_track, window, collision)
+    model = kernel_model(step_tile, step_takes_t)
+    dev = u.device
+    K = eps.shape[0]
+    check("eps", eps, (K, T, nu), dev)
+    eps_t = eps.transpose(0, 1).contiguous()  # (T, K, nu): coalesced per step
+    S = torch.empty(K, dtype=torch.float32, device=dev)
+    fields, held = _fill_args(
+        model=model, step_tile=step_tile, u=u, a=a, x0=x0, window=window,
+        stage_w=stage_w, term_w=term_w, u_min=u_min, u_max=u_max, dt=dt, n_exploit=n_exploit,
+        obstacles=obstacles, obstacle_velocities=obstacle_velocities,
+        robot_radius=robot_radius, safety_margin_rate=safety_margin_rate,
+        soft_safety_distance=soft_safety_distance, soft_weight=soft_weight,
+        k_offset=k_offset, nx=nx, nu=nu, n_track=n_track, K=K, T=T, W=W,
+        wrap_yaw=wrap_yaw, last_only=last_only, collision=collision,
+    )
+    launch("dmm_generic_rollout_costs",
+           DmmGenericArgs(eps=eps_t.data_ptr(), S=S.data_ptr(), eps_mode=0, **fields), dev)
+    del held  # the launch is enqueued: the allocator orders any reuse after it
+    return S
 
 
 def generic_rollout_costs(
@@ -280,24 +337,15 @@ def generic_rollout_costs(
             W=W, wrap_yaw=wrap_yaw, last_only=last_only, collision=collision,
             step_takes_t=step_takes_t,
         )
-    _check_args(step_tile, nx, nu, n_track, window, collision)
-    model = kernel_model(step_tile, step_takes_t)
-    dev = u.device
-    K = eps.shape[0]
-    check("eps", eps, (K, T, nu), dev)
-    eps_t = eps.transpose(0, 1).contiguous()  # (T, K, nu): coalesced per step
-    S = torch.empty(K, dtype=torch.float32, device=dev)
-    fields = _fill_args(
-        model=model, step_tile=step_tile, u=u, a=a, x0=x0, window=_window(window, W, n_track),
-        stage_w=stage_w, term_w=term_w, u_min=u_min, u_max=u_max, dt=dt, n_exploit=n_exploit,
-        obstacles=obstacles, obstacle_velocities=obstacle_velocities,
+    S = launch_generic_rollout(
+        eps=eps, u=u, a=a, x0=x0, window=window, stage_w=stage_w, term_w=term_w, u_min=u_min,
+        u_max=u_max, dt=dt, n_exploit=n_exploit, obstacles=obstacles,
         robot_radius=robot_radius, safety_margin_rate=safety_margin_rate,
-        soft_safety_distance=soft_safety_distance, soft_weight=soft_weight,
-        k_offset=k_offset, nx=nx, nu=nu, n_track=n_track, K=K, T=T, W=W,
-        wrap_yaw=wrap_yaw, last_only=last_only, collision=collision,
+        obstacle_velocities=obstacle_velocities, soft_safety_distance=soft_safety_distance,
+        soft_weight=soft_weight, k_offset=k_offset, step_tile=step_tile, nx=nx, nu=nu,
+        n_track=n_track, T=T, W=W, wrap_yaw=wrap_yaw, last_only=last_only,
+        collision=collision, step_takes_t=step_takes_t,
     )
-    launch("dmm_generic_rollout_costs",
-           DmmGenericArgs(eps=eps_t.data_ptr(), S=S.data_ptr(), eps_mode=0, **fields), dev)
     generic_rollout_costs.launches += 1
     return S
 
@@ -341,6 +389,58 @@ def generic_mppi_tick_plain(
 
 
 generic_mppi_tick_plain.calls = 0
+
+
+def launch_generic_tick(
+    *, seed, u, a, chol_sigma, x0, window, stage_w, term_w, u_min, u_max, dt, n_exploit,
+    inv_temperature, obstacles, robot_radius, safety_margin_rate, obstacle_velocities,
+    soft_safety_distance, soft_weight, filter_t, k_offset, eps, emit_eps, step_tile, nx, nu,
+    n_track, K, T, W, wrap_yaw, last_only, collision, step_takes_t=False, rollout_carry=False,
+) -> dict:
+    """Check the inputs, allocate the outputs and scratch and launch
+    ``dmm_generic_tick``: ε injected (``eps``), or drawn and stored
+    (``emit_eps``), or drawn and drawn again in Σw·ε; the epilogue when
+    ``filter_t`` is given. Returns a dict of the output tensors (``eps`` is
+    the (T, K, nu) buffer, None when ε is drawn again)."""
+    _check_args(step_tile, nx, nu, n_track, window, collision)
+    model = kernel_model(step_tile, step_takes_t, rollout_carry)
+    dev = u.device
+    fields, held = _fill_args(
+        model=model, step_tile=step_tile, u=u, a=a, x0=x0, window=window,
+        stage_w=stage_w, term_w=term_w, u_min=u_min, u_max=u_max, dt=dt, n_exploit=n_exploit,
+        obstacles=obstacles, obstacle_velocities=obstacle_velocities,
+        robot_radius=robot_radius, safety_margin_rate=safety_margin_rate,
+        soft_safety_distance=soft_safety_distance, soft_weight=soft_weight,
+        k_offset=k_offset, nx=nx, nu=nu, n_track=n_track, K=K, T=T, W=W,
+        wrap_yaw=wrap_yaw, last_only=last_only, collision=collision,
+    )
+    n = scratch_floats(K, T, nu)
+    out = {name: torch.empty(shape, dtype=torch.float32, device=dev)
+           for name, shape in (("S", (K,)), ("w", (K,)), ("w_eps", (T, nu)), ("stats", (2,)),
+                               ("scratch", (n,)))}
+    if eps is not None:
+        check("eps", eps, (K, T, nu), dev)
+        eps_buf, eps_mode = eps.transpose(0, 1).contiguous(), 0  # (T, K, nu)
+    elif emit_eps:  # draw and store ε, which Σw·ε then reads
+        eps_buf, eps_mode = torch.empty((T, K, nu), dtype=torch.float32, device=dev), 1
+    else:  # draw ε, and draw it again in Σw·ε
+        eps_buf, eps_mode = None, 2
+    if eps_mode != 0:
+        fields["seed"] = check_seed(seed, dev)
+    if filter_t is not None:
+        fields["filter_t"] = check("filter_t", filter_t, (T, T), dev)
+        for name, shape in (("u_new", (T, nu)), ("u_shift", (T, nu)), ("finite", ())):
+            out[name] = torch.empty(shape, dtype=torch.float32, device=dev)
+    launch("dmm_generic_tick", DmmGenericArgs(
+        chol=check("chol_sigma", chol_sigma, (nu, nu), dev),
+        eps=0 if eps_buf is None else eps_buf.data_ptr(),
+        eps_mode=eps_mode, inv_temp=f32(inv_temperature),
+        fuse_epilogue=int(filter_t is not None), scratch_floats=n,
+        **{name: t.data_ptr() for name, t in out.items()}, **fields,
+    ), dev)
+    del held  # the launch is enqueued: the allocator orders any reuse after it
+    out["eps"] = eps_buf
+    return out
 
 
 def generic_mppi_tick(
@@ -400,45 +500,23 @@ def generic_mppi_tick(
             fuse_epilogue=fuse_epilogue, step_takes_t=step_takes_t,
             rollout_carry=rollout_carry,
         )
-    _check_args(step_tile, nx, nu, n_track, window, collision)
-    model = kernel_model(step_tile, step_takes_t, rollout_carry)
-    dev = u.device
-    fields = _fill_args(
-        model=model, step_tile=step_tile, u=u, a=a, x0=x0, window=_window(window, W, n_track),
-        stage_w=stage_w, term_w=term_w, u_min=u_min, u_max=u_max, dt=dt, n_exploit=n_exploit,
-        obstacles=obstacles, obstacle_velocities=obstacle_velocities,
-        robot_radius=robot_radius, safety_margin_rate=safety_margin_rate,
+    out = launch_generic_tick(
+        seed=seed, u=u, a=a, chol_sigma=chol_sigma, x0=x0, window=window, stage_w=stage_w,
+        term_w=term_w, u_min=u_min, u_max=u_max, dt=dt, n_exploit=n_exploit,
+        inv_temperature=inv_temperature, obstacles=obstacles, robot_radius=robot_radius,
+        safety_margin_rate=safety_margin_rate, obstacle_velocities=obstacle_velocities,
         soft_safety_distance=soft_safety_distance, soft_weight=soft_weight,
-        k_offset=k_offset, nx=nx, nu=nu, n_track=n_track, K=K, T=T, W=W,
+        filter_t=filter_t if fuse_epilogue else None, k_offset=k_offset, eps=eps,
+        emit_eps=emit_eps, step_tile=step_tile, nx=nx, nu=nu, n_track=n_track, K=K, T=T, W=W,
         wrap_yaw=wrap_yaw, last_only=last_only, collision=collision,
+        step_takes_t=step_takes_t, rollout_carry=rollout_carry,
     )
-    out = {name: torch.empty(shape, dtype=torch.float32, device=dev)
-           for name, shape in (("S", (K,)), ("w", (K,)), ("w_eps", (T, nu)), ("stats", (2,)))}
-    if eps is not None:
-        check("eps", eps, (K, T, nu), dev)
-        eps_buf, eps_mode = eps.transpose(0, 1).contiguous(), 0  # (T, K, nu)
-    elif emit_eps:  # draw and store ε, which Σw·ε then reads
-        eps_buf, eps_mode = torch.empty((T, K, nu), dtype=torch.float32, device=dev), 1
-    else:  # draw ε, and draw it again in Σw·ε
-        eps_buf, eps_mode = None, 2
-    if eps_mode != 0:
-        fields["seed"] = check_seed(seed, dev)
-    if fuse_epilogue:
-        fields["filter_t"] = check("filter_t", filter_t, (T, T), dev)
-        for name, shape in (("u_new", (T, nu)), ("u_shift", (T, nu)), ("finite", ())):
-            out[name] = torch.empty(shape, dtype=torch.float32, device=dev)
-    launch("dmm_generic_tick", DmmGenericArgs(
-        chol=check("chol_sigma", chol_sigma, (nu, nu), dev),
-        eps=0 if eps_buf is None else eps_buf.data_ptr(),
-        eps_mode=eps_mode, inv_temp=f32(inv_temperature), fuse_epilogue=int(fuse_epilogue),
-        **{name: t.data_ptr() for name, t in out.items()}, **fields,
-    ), dev)
     generic_mppi_tick.launches += 1
     result = [out["S"], out["w"], out["w_eps"]]
     if fuse_epilogue:
         result.append((out["u_new"], out["u_shift"], out["finite"]))
     if emit_eps:
-        result.append(eps if eps is not None else eps_buf.transpose(0, 1))
+        result.append(eps if eps is not None else out["eps"].transpose(0, 1))
     return tuple(result)
 
 
@@ -452,4 +530,8 @@ __all__ = [
     "generic_rollout_costs",
     "generic_rollout_costs_plain",
     "kernel_model",
+    "launch_generic_rollout",
+    "launch_generic_tick",
+    "rollout_group",
+    "scratch_floats",
 ]
