@@ -47,9 +47,10 @@
 // the same order, so both routes give the same results. The fleet keeps the
 // one-block softmax a member and Σ w·ε on (T, B) blocks: the chunked form
 // with a member dimension was slower on the card. The sharded tick's
-// weighted noise reduce (T blocks, its ε drawn again) stays on the
-// one-block form (moving it onto the chunked grid is later work). No
-// atomics: results repeat bit for bit from run to run.
+// weighted noise reduce runs the same Σ w·ε grid from the weights it is
+// given, then the chunk sum: two launches, and given the K-blocked tick's
+// own w it returns that tick's Σ w·ε bit for bit. No atomics: results
+// repeat bit for bit from run to run.
 //
 // Built with -fmad=false (see _build.py): no implicit FMA contraction, so the
 // kernel rounds like the plain PyTorch version op for op; the epilogue's
@@ -206,14 +207,12 @@ long long dmm_chunk_scratch_floats(int K, int k_blk, int T) {
 int dmm_rollout_group(long long samples) { return rollout_group(samples); }
 
 // Σₖ wₖ·εₖ with ε drawn again from (seed, block_offset + k / k_blk): reads
-// w (K,), chol and the seed, writes w_eps (T, 2). One launch of T blocks.
+// w (K,), chol and the seed, writes w_eps (T, 2) through the scratch
+// (dmm_chunk_scratch_floats(K, k_blk, T) floats). Σ w·ε on the chunked grid,
+// then the chunk sum: two launches; bad arguments are refused before either.
 int dmm_weighted_noise_reduce(const DmmArgs* args, void* stream) {
-  const DmmArgs p = *args;
-  if (p.K <= 0 || p.T <= 0 || p.k_blk <= 0 || p.K % p.k_blk != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  weighted_eps_kernel<true><<<p.T, kWepsThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      reduce_args(p));
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_chunked_weighted_eps(reduce_args(*args), args->T,
+                                                      static_cast<cudaStream_t>(stream)));
 }
 
 // B complete ticks (hash ε from seeds[b], one block of K per member): the

@@ -5,12 +5,13 @@
 // Shared by the diff-drive ticks (mppi_kernels.cu), the bicycle tick
 // (bicycle_kernels.cu) and the generic tick (generic_kernels.cu). The
 // one-block forms (softmax_kernel, weighted_eps_kernel, two control dims)
-// serve the bicycle tick, the fleet and the sharded tick's weighted noise
-// reduce; the diff-drive fused and K-blocked ticks and the generic tick run
-// the chunked forms (launch_chunked_reductions, templates on the control
-// width NU): grid-wide passes over chunks of K sized from the launch, each
-// chunk's partial written to scratch and combined in chunk order by one
-// block, which also runs the epilogue. No atomics anywhere:
+// serve the bicycle tick and the fleet; the diff-drive fused and K-blocked
+// ticks, the generic tick and the sharded tick's weighted noise reduce run
+// the chunked forms (launch_chunked_reductions, and
+// launch_chunked_weighted_eps for Σ w·ε from given weights; templates on
+// the control width NU): grid-wide passes over chunks of K sized from the
+// launch, each chunk's partial written to scratch and combined in chunk
+// order by one block, which also runs the epilogue. No atomics anywhere:
 // every sum is a fixed-order tree or loop, so results repeat bit for bit
 // from run to run. They take the few fields they read in DmmReduceArgs and
 // DmmEpilogueArgs, which each entry point fills from its own argument block.
@@ -235,9 +236,10 @@ cudaError_t launch_reductions(const DmmReduceArgs& r, int T, int B, cudaStream_t
 // steps a block, 500 blocks), (4, 1) at the flagship's K (chunks of 1 024,
 // one step, 500 blocks; the generic tick at K = 10 240 too), (1, 1) at the
 // four-wheel example's K = 2 048, T = 25 (8 chunks of 256, 200 blocks). One
-// controller only: the fleet keeps the one-block
-// softmax a member and Σ w·ε on (T, B) blocks (launch_reductions), since a
-// member dimension here was slower on the card (root PERF.md §6).
+// controller only: of the diff-drive ticks the fleet alone keeps the
+// one-block softmax a member and Σ w·ε on (T, B) blocks
+// (launch_reductions), since a member dimension here was slower on the card
+// (root PERF.md §6).
 // The softmax is online: one pass gives each chunk its min m_c and
 // s_c = Σ exp(−λ(S−m_c)) (from registers), and η = Σ_c s_c·exp(−λ(m_c−ρ)),
 // the merge of the JAX kernel's K blocks
@@ -248,7 +250,11 @@ cudaError_t launch_reductions(const DmmReduceArgs& r, int T, int B, cudaStream_t
 // way), colours a drawn one by Σ's factor and writes its NU partial sums;
 // one block then sums each (t, j) over the chunks in chunk order, stores ρ
 // and η, and runs the epilogue when the tick has one (Fᵀ staged in shared
-// memory while the chunks are summed, where it fits).
+// memory while the chunks are summed, where it fits). The sharded tick's
+// phase 2 (launch_chunked_weighted_eps) is handed its weights: the same
+// Σ w·ε grid reads w instead of forming it, and the chunk sum does nothing
+// more, so given the K-blocked tick's own w it returns that tick's Σ w·ε bit
+// for bit.
 
 constexpr int kChunkThreads = 256;
 constexpr int kChunkPerThread = 8;  // samples a thread at most: chunks of ≤ 2 048
@@ -399,18 +405,19 @@ __global__ void __launch_bounds__(kChunkThreads) chunk_stats_kernel(DmmReduceArg
   }
 }
 
-// Σ w·ε, block (c, s): chunk c's w (stored by the blocks of s = 0), formed
-// once and kept in registers, and its NU partial sums of wₖ·εₖ at each of
-// the steps [s·ch.steps, (s + 1)·ch.steps), ε read from the (T, K, NU)
-// buffer (READ) or drawn again from the stream.
-template <int NU, bool READ>
+// Σ w·ε, block (c, s): chunk c's w, kept in registers, and its NU partial
+// sums of wₖ·εₖ at each of the steps [s·ch.steps, (s + 1)·ch.steps), ε read
+// from the (T, K, NU) buffer (READ) or drawn again from the stream. w is
+// formed once from the chunk statistics (the blocks of s = 0 store it), or
+// with GIVEN_W read from p.w as the caller gave it, and never written.
+template <int NU, bool READ, bool GIVEN_W = false>
 __global__ void __launch_bounds__(kChunkThreads) chunk_weps_kernel(DmmReduceArgs p,
                                                                    DmmChunks ch, int T) {
   __shared__ float red[NU * kChunkThreads / 32];
   const int c = blockIdx.x;
   const int t0 = blockIdx.y * ch.steps, t1 = min(t0 + ch.steps, T);
-  float rho, eta;
-  combine_chunks(p, ch, red, &rho, &eta);
+  float rho = 0.0f, eta = 1.0f;
+  if (!GIVEN_W) combine_chunks(p, ch, red, &rho, &eta);
   int begin, end, blk;
   dmm_chunk(p, ch, c, &begin, &end, &blk);
   float L[NU * NU];
@@ -426,8 +433,12 @@ __global__ void __launch_bounds__(kChunkThreads) chunk_weps_kernel(DmmReduceArgs
 #pragma unroll
   for (int i = 0; i < kChunkPerThread; ++i) {
     const int k = begin + threadIdx.x + i * kChunkThreads;
-    w[i] = k < end ? expf(neg_lam * (p.S[k] - rho)) / eta : 0.0f;
-    if (k < end && t0 == 0) p.w[k] = w[i];
+    if (GIVEN_W) {
+      w[i] = k < end ? p.w[k] : 0.0f;
+    } else {
+      w[i] = k < end ? expf(neg_lam * (p.S[k] - rho)) / eta : 0.0f;
+      if (k < end && t0 == 0) p.w[k] = w[i];
+    }
   }
   for (int t = t0; t < t1; ++t) {
     float acc[NU];
@@ -461,20 +472,21 @@ __global__ void __launch_bounds__(kChunkThreads) chunk_weps_kernel(DmmReduceArgs
 }
 
 // One block: w_eps[t, j] = Σ_c partial[t, c, j] in chunk order, ρ and η;
-// then, when e.filter_t is set, the epilogue on that w_eps.
-template <int NU = 2>
+// then, when e.filter_t is set, the epilogue on that w_eps. With GIVEN_W
+// (no chunk statistics exist) the sum alone: no ρ, η or epilogue.
+template <int NU = 2, bool GIVEN_W = false>
 __global__ void __launch_bounds__(kChunkThreads) chunk_final_kernel(DmmReduceArgs p,
                                                                     DmmChunks ch, int T,
                                                                     DmmEpilogueArgs e) {
   __shared__ float red[kChunkThreads / 32];
   extern __shared__ float ep_s[];  // the epilogue's (T, NU) w_eps and u_new, then Fᵀ
-  const bool epilogue = e.filter_t != nullptr;
+  const bool epilogue = !GIVEN_W && e.filter_t != nullptr;
   const bool staged = epilogue && epilogue_stages_filter(T, NU);
   float* f_s = ep_s + 2 * NU * T;
   if (staged)  // Fᵀ's loads in flight while the chunks are summed
     for (int i = threadIdx.x; i < T * T; i += kChunkThreads) f_s[i] = e.filter_t[i];
-  float rho, eta;
-  combine_chunks(p, ch, red, &rho, &eta);
+  float rho = 0.0f, eta = 0.0f;
+  if (!GIVEN_W) combine_chunks(p, ch, red, &rho, &eta);
   const float* part = p.scratch + 2 * ch.count;
   for (int i = threadIdx.x; i < T * NU; i += kChunkThreads) {
     const int t = i / NU, j = i - t * NU;
@@ -485,7 +497,7 @@ __global__ void __launch_bounds__(kChunkThreads) chunk_final_kernel(DmmReduceArg
     p.w_eps[i] = acc;
     if (epilogue) ep_s[i] = acc;
   }
-  if (threadIdx.x == 0) {
+  if (!GIVEN_W && threadIdx.x == 0) {
     p.stats[0] = rho;
     p.stats[1] = eta;
   }
@@ -529,6 +541,24 @@ cudaError_t launch_chunked_reductions(const DmmReduceArgs& r, int T, const DmmEp
   const size_t smem =
       epilogue ? (2 * NU * T + (epilogue_stages_filter(T, NU) ? T * T : 0)) * sizeof(float) : 0;
   chunk_final_kernel<NU><<<1, kChunkThreads, smem, s>>>(r, ch, T, e);
+  return cudaGetLastError();
+}
+
+// Σ w·ε from the weights r.w as given (ε drawn again from the seed; no
+// softmax: r.w and r.stats are not touched) on the (C, ⌈T/steps⌉) grid,
+// then the in-order chunk sum into r.w_eps, on stream s: 2 launches. The
+// first launch error; what chunked_reductions_take refuses is refused
+// before any launch.
+template <int NU = 2>
+cudaError_t launch_chunked_weighted_eps(const DmmReduceArgs& r, int T, cudaStream_t s) {
+  const DmmEpilogueArgs none{};
+  if (!chunked_reductions_take<NU>(r, T, none)) return cudaErrorInvalidValue;
+  const DmmChunks ch = dmm_chunks(r.K, r.k_blk, T);
+  const dim3 grid(ch.count, (T + ch.steps - 1) / ch.steps);
+  chunk_weps_kernel<NU, false, true><<<grid, kChunkThreads, 0, s>>>(r, ch, T);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  chunk_final_kernel<NU, true><<<1, kChunkThreads, 0, s>>>(r, ch, T, none);
   return cudaGetLastError();
 }
 

@@ -109,9 +109,9 @@ diffdrive_mppi_tick_plain.calls = 0
 
 
 def chunk_scratch_floats(K: int, k_blk: int, T: int) -> int:
-    """The floats of scratch the fused and K-blocked ticks' chunked
-    reductions need, as the library computes them
-    (``dmm_chunk_scratch_floats``; the chunk layout lives in
+    """The floats of scratch the chunked reductions of the fused and
+    K-blocked ticks and of the weighted noise reduce need, as the library
+    computes them (``dmm_chunk_scratch_floats``; the chunk layout lives in
     csrc/mppi_reductions.cuh alone)."""
     return load_kernels().dmm_chunk_scratch_floats(K, k_blk, T)
 

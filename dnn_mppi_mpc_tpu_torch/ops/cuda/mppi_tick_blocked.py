@@ -16,7 +16,10 @@ Counterpart of ``dnn_mppi_mpc_tpu/ops/pallas/mppi_tick_blocked.py``:
   reductions too). ``s_only`` stops after the rollout: phase 1 of the
   sharded tick.
 * :func:`weighted_noise_reduce` (``:475``): Σₖ wₖ·εₖ with ε drawn again from
-  the same stream, phase 2 of the sharded tick.
+  the same stream, phase 2 of the sharded tick. It runs the K-blocked tick's
+  Σw·ε grid over chunks × steps on the weights it is given (no softmax),
+  then the chunk sum in chunk order: given that tick's own w (same seed,
+  offset and K_BLK) it returns that tick's Σw·ε bit for bit.
 * :func:`fleet_mppi_tick` (``:618``): B complete ticks in one call, member b
   drawing its ε from ``seeds[b]`` (one block of K samples); the rollout,
   the softmax and Σw·ε each one grid over all members.
@@ -43,7 +46,13 @@ from .common import (
     weighted_noise_plain,
 )
 from .mathx import hash_noise
-from .mppi_tick import _OBS_MODES, effective_robot_radius, launch_tick, pack_obstacles
+from .mppi_tick import (
+    _OBS_MODES,
+    chunk_scratch_floats,
+    effective_robot_radius,
+    launch_tick,
+    pack_obstacles,
+)
 
 
 def _check_blocks(K: int, K_BLK: int) -> None:
@@ -181,15 +190,29 @@ def weighted_noise_reduce(
     if not on_cuda(w, seed=seed, chol_sigma=chol_sigma):
         return weighted_noise_reduce_plain(seed, w, chol_sigma, block_offset, K=K, T=T,
                                            K_BLK=K_BLK)
+    w_eps = launch_weighted_noise_reduce(seed, w, chol_sigma, block_offset, K=K, T=T,
+                                         K_BLK=K_BLK)
+    weighted_noise_reduce.launches += 1
+    return w_eps
+
+
+def launch_weighted_noise_reduce(seed, w, chol_sigma, block_offset, *, K: int, T: int,
+                                 K_BLK: int) -> torch.Tensor:
+    """Check the inputs, allocate the output and the scratch the library
+    sizes (``dmm_chunk_scratch_floats``) and launch
+    ``dmm_weighted_noise_reduce``. Returns ``w_eps`` (T, 2); ``w`` is only
+    read."""
     dev = w.device
     w_eps = torch.empty((T, 2), dtype=torch.float32, device=dev)
+    n = chunk_scratch_floats(K, K_BLK, T)
+    scratch = torch.empty(n, dtype=torch.float32, device=dev)
     args = DmmArgs(
         seed=check_seed(seed, dev), w=check("w", w, (K,), dev),
         chol=check("chol_sigma", chol_sigma, (2, 2), dev), w_eps=w_eps.data_ptr(),
+        scratch=scratch.data_ptr(), scratch_floats=n,
         K=K, T=T, k_blk=K_BLK, block_offset=block_offset,
     )
     launch("dmm_weighted_noise_reduce", args, dev)
-    weighted_noise_reduce.launches += 1
     return w_eps
 
 

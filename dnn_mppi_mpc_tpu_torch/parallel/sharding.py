@@ -9,8 +9,9 @@ group — counterpart of ``dnn_mppi_mpc_tpu/parallel/sharding.py``.
   over n ranks. Phase 1 is the K-blocked tick in ``s_only`` mode with ε
   drawn from (seed, global block); between the phases the only traffic is
   three all-reduces (ρ = min, η = Σ m, and the (T, 2) Σ w·ε partials);
-  phase 2 is ``weighted_noise_reduce``, which draws the same ε again. The
-  (K, T, 2) noise tensor never exists.
+  phase 2 is ``weighted_noise_reduce``, which draws the same ε again on
+  the K-blocked tick's grid of chunks × steps, from the weights m/η, and
+  sums the chunks in chunk order. The (K, T, 2) noise tensor never exists.
 * :func:`make_sharded_mppi_fleet` gives each rank B/n members of a fleet,
   with no collectives.
 * :func:`make_sharded_nmpc_fleet` does the same for a fleet of NMPC

@@ -15,13 +15,16 @@ call, in turns (a, b, b, a). For each wrapper at its main path's shape:
 * ``diffdrive_mppi_tick_blocked[s_only]``: its rollout alone at K = 10 240,
   the sharded tick's phase 1;
 * ``fleet_mppi_tick``: B = 16 members of K = 1 024, T = 50, W = 20;
+* ``weighted_noise_reduce``: the sharded tick's phase 2 at K = 10 240 (its
+  main path, world size 1) and K = 102 400, ``K_BLK`` = 10 240, T = 50;
 
 it prints the time a call (CUDA events over 100 back-to-back calls, taken
 in ROUNDS rounds: their median, least and largest; the wrapper's host work
 sets it where that is longer than the device's), the device time a call and
 its three largest kernels (profiler), and then the time a tick (CUDA
 events over 50 ticks, ROUNDS rounds) and the device busy time a tick (20
-ticks profiled) of the flagship and fleet closed loops. Run from anywhere:
+ticks profiled) of the flagship, fleet and sharded (world size 1, NCCL on a
+one-process group) closed loops. Run from anywhere:
 
     python tools/diffdrive_time.py
 
@@ -43,9 +46,9 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
-from dnn_mppi_mpc_tpu_torch import _build, presets  # noqa: E402
+from dnn_mppi_mpc_tpu_torch import _build, parallel, presets  # noqa: E402
 from dnn_mppi_mpc_tpu_torch.ops import cuda as kern  # noqa: E402
-from dnn_mppi_mpc_tpu_torch.solvers.mppi import MPPISolver  # noqa: E402
+from dnn_mppi_mpc_tpu_torch.solvers.mppi import MPPISolver, MPPIState  # noqa: E402
 
 ROUNDS = 7
 
@@ -68,6 +71,13 @@ def rows(dev) -> dict:
     ft = cs.filter_t(cs.T_FLAG, dev)
     base = cs.fleet_inputs(dev, rng)
     fleet = dict(base["args"], iso_xy=True)
+
+    def reduce(K):
+        w = torch.rand(K, generator=torch.Generator(dev).manual_seed(K), device=dev)
+        args = dict(seed=seed, w=w / w.sum(), chol_sigma=flag["chol_sigma"], block_offset=0,
+                    K=K, T=cs.T_FLAG, K_BLK=cs.K_BLK)
+        return lambda: kern.weighted_noise_reduce(**args)
+
     return {
         "diffdrive_rollout_costs": lambda: kern.diffdrive_rollout_costs(
             **roll, eps=eps, T=cs.T_FLAG, W=cs.W_FLAG),
@@ -80,17 +90,23 @@ def rows(dev) -> dict:
             **flag, seed=seed, K=cs.K_FLAG, T=cs.T_FLAG, W=cs.W_FLAG, K_BLK=cs.K_BLK,
             iso_xy=True, s_only=True),
         "fleet_mppi_tick": lambda: kern.fleet_mppi_tick(**fleet),
+        f"weighted_noise_reduce K={cs.K_FLAG}": reduce(cs.K_FLAG),
+        f"weighted_noise_reduce K={cs.K_POD}": reduce(cs.K_POD),
     }
 
 
 def loops(dev) -> dict:
-    """name -> one closed-loop tick (step and plant) of the flagship and the fleet."""
+    """name -> one closed-loop tick (step and plant) of the flagship, the
+    fleet and the sharded flagship at world size 1 (the default process
+    group, which the caller opens)."""
     cfg, params, step_fn, stage, terminal = presets.flagship(cs.K_FLAG, cs.T_FLAG, dev)
     flag = MPPISolver(cfg, step_fn, stage, terminal, fused_tick=True, iso_xy=True, device=dev)
     step, fparams, states, fplant = presets.mppi_fleet(cs.B_FLEET, cs.K_FLEET, cs.T_FLAG,
                                                        device=dev)
+    sharded = parallel.make_sharded_fused_mppi_step(cfg, step_fn, iso_xy=True, device=dev)
     carry = {"flag": (flag.init(), cs.path_start(dev)),
-             "fleet": (states, torch.zeros((cs.B_FLEET, 3), device=dev))}
+             "fleet": (states, torch.zeros((cs.B_FLEET, 3), device=dev)),
+             "sharded": (MPPIState.init(cfg, device=dev), cs.path_start(dev))}
 
     def flag_tick():
         st, x = carry["flag"]
@@ -102,7 +118,13 @@ def loops(dev) -> dict:
         u0, st, _ = step(fparams, st, x)
         carry["fleet"] = (st, fplant(x, u0))
 
-    return {"flagship closed loop": flag_tick, "fleet closed loop": fleet_tick}
+    def sharded_tick():
+        st, x = carry["sharded"]
+        u0, st, _ = sharded(params, st, x)
+        carry["sharded"] = (st, step_fn(x, u0))
+
+    return {"flagship closed loop": flag_tick, "fleet closed loop": fleet_tick,
+            "sharded closed loop world 1": sharded_tick}
 
 
 def main() -> int:
@@ -114,6 +136,15 @@ def main() -> int:
     print(card, flush=True)
     dev = torch.device("cuda", 0)
     _build.load_kernels()
+    parallel.initialize_distributed(device=dev)
+    try:
+        measure(dev, card)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def measure(dev, card: str) -> None:
     tree = str(ROOT)
     for name, fn in rows(dev).items():
         dev_us, n, by_name, _ = cs.device_time(fn, 100)
@@ -132,7 +163,6 @@ def main() -> int:
               "tick_ms_min": ms[0], "tick_ms_max": ms[-1], "device_busy_us_per_tick": dev_us,
               "device_kernels_per_tick": n, "host_aten_ops_per_tick": host_ops,
               "top_kernels_us_per_tick": [[k[:60], v] for k, v in top]})
-    return 0
 
 
 if __name__ == "__main__":
