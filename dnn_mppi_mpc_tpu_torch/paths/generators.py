@@ -1,6 +1,7 @@
 """Reference-trajectory generators (counterpart of
-``dnn_mppi_mpc_tpu/paths/generators.py``: the straight line and the race
-car's circle and lemniscate with a reference speed). Each returns a float32
+``dnn_mppi_mpc_tpu/paths/generators.py``: the lemniscate with gradient
+yaw, the straight line, and the race car's circle and lemniscate with a
+reference speed). Each returns a float32
 (P, d) tensor on ``device`` (the card unless the caller passes
 ``device="cpu"``) with columns (x, y, yaw[, v])."""
 
@@ -24,6 +25,17 @@ def _table(columns, device) -> torch.Tensor:
     """Columns built in float64 numpy, rounded to float32 once."""
     return torch.tensor(np.stack(columns, axis=1), dtype=torch.float32,
                         device=resolve_device(device))
+
+
+def lemniscate(a: float, num_points: int = 100, t0: float = -math.pi, t1: float = math.pi,
+               device="cuda") -> torch.Tensor:
+    """Lemniscate of Bernoulli over t ∈ [t0, t1] with yaw from the numerical
+    gradient: (P, 3) rows (x, y, yaw)."""
+    t = np.linspace(t0, t1, num_points)
+    denom = 1.0 + np.sin(t) ** 2
+    x = a * np.cos(t) / denom
+    y = a * np.sin(t) * np.cos(t) / denom
+    return _table([x, y, np.arctan2(_gradient(y), _gradient(x))], device)
 
 
 def line(start, end, num_points: int = 100, device="cuda") -> torch.Tensor:
@@ -61,4 +73,4 @@ def lemniscate_with_speed(
     return _table([x, y, yaw, np.full_like(t, speed)], device)
 
 
-__all__ = ["circle_with_speed", "lemniscate_with_speed", "line"]
+__all__ = ["circle_with_speed", "lemniscate", "lemniscate_with_speed", "line"]

@@ -5,6 +5,11 @@ diff-drive MPPI, unicycle with Euler steps at dt 0.02, exploration
 temperature (1/1e-4), SUM cost, moving-average-edge filter of window 10, a
 W = 20 waypoint window over a 200-point line from (0, 0) to (20, −10).
 
+:func:`diff_drive_mppi` and :func:`goal_seeking_mppi` are the JAX package's
+diff-drive presets: waypoint tracking with the reference controller's
+defaults (circle collision when obstacles are given), and goal-point MPPI
+with soft, drifting obstacles (the suite's ``goal_seeking`` row).
+
 :func:`racecar_mppi` is the counterpart of the JAX package's
 ``presets.racecar_mppi``: the race car (kinematic bicycle, polygon
 collision) as one :class:`MPPISolver` and its params.
@@ -60,6 +65,8 @@ from .solvers.mppi import (
     make_cuda_bicycle_rollout,
     make_cuda_bicycle_tick,
     make_fleet_fused_mppi_step,
+    _reject_unported,
+    make_cuda_diffdrive_tick,
     make_tracking_costs,
     resolve_device,
 )
@@ -120,6 +127,164 @@ def _lane_rounded_samples(num_samples: int) -> int:
     return -(-num_samples // 128) * 128
 
 
+def _f32(a, device) -> Optional[torch.Tensor]:
+    """``a`` (a tensor, array or list; or None) as float32 on ``device``."""
+    if a is None or isinstance(a, torch.Tensor):
+        return None if a is None else a.to(device=device, dtype=torch.float32)
+    return torch.tensor(np.asarray(a, np.float32), device=device)
+
+
+def diff_drive_mppi(
+    ref_path,
+    num_samples: int = 100,
+    horizon: int = 10,
+    dt: float = 0.1,
+    obstacles=None,
+    use_kernel: bool = False,
+    fused_tick: bool = False,
+    iso_xy: Optional[bool] = None,
+    device="cuda",
+    **overrides,
+) -> tuple[MPPISolver, MPPIParams]:
+    """Diff-drive waypoint-tracking MPPI, the JAX preset.
+
+    The reference controller's defaults (controllers/mppi_differential_drive.py:399-410):
+    dt = 0.1, K = 100, T = 10, exploration 1e-4, λ = 1, α = 0.2,
+    Σ = diag(0.1, 0.01), weights (5, 5, 10), v ∈ ±5, ω ∈ ±3.14, the
+    moving-average-edge filter of window min(10, T), W = 20; with
+    ``obstacles`` (n, 3) the circle-collision variant (its own main runs
+    K = 500, T = 20). ``fused_tick`` binds the fused tick, ``use_kernel``
+    (JAX's ``use_pallas``) the split rollout; either rounds K up to a
+    multiple of 128 (``solver.cfg.num_samples`` is the K in use).
+    ``iso_xy`` None enables the symmetric-weight specialization exactly
+    when the x and y weights are equal, which the defaults are.
+    ``overrides`` replace any :class:`MPPIConfig` field. Params live on
+    ``device``."""
+    device = resolve_device(device)
+    if use_kernel or fused_tick:
+        num_samples = _lane_rounded_samples(num_samples)
+    kw = dict(
+        num_samples=num_samples,
+        horizon=horizon,
+        dim_x=3,
+        dim_u=2,
+        dt=dt,
+        lam=1.0,
+        alpha=0.2,
+        exploration=0.0001,
+        temperature=Temperature.EXPLORATION,
+        accumulation=CostAccumulation.SUM,
+        filter=SmoothingFilter.MOVING_AVERAGE_EDGE,
+        filter_window=min(10, horizon),
+        waypoint_search_len=20,
+        use_kernel=use_kernel,
+    )
+    kw.update(overrides)
+    cfg = MPPIConfig(**kw)
+    weights = [5.0, 5.0, 10.0]
+    params = MPPIParams(
+        sigma=_f32([[0.1, 0.0], [0.0, 0.01]], device),
+        stage_weight=_f32(weights, device),
+        terminal_weight=_f32(weights, device),
+        u_min=_f32([-5.0, -3.14], device),
+        u_max=_f32([5.0, 3.14], device),
+        ref_path=_f32(ref_path, device),
+        obstacles=_f32(obstacles, device),
+    )
+
+    def step(x, u):
+        return euler_step(unicycle, x, u, dt)
+
+    stage, terminal = make_tracking_costs(
+        cfg, collision="none" if obstacles is None else "circle"
+    )
+    if iso_xy is None:
+        iso_xy = weights[0] == weights[1]
+    # the kernels' collision stays "circle": params.obstacles None is no obstacle
+    solver = MPPISolver(cfg, step, stage, terminal, use_kernel=use_kernel,
+                        fused_tick=fused_tick, iso_xy=iso_xy, device=device)
+    return solver, params
+
+
+def goal_seeking_mppi(
+    goal,
+    num_samples: int = 1500,
+    horizon: int = 50,
+    dt: float = 0.05,
+    obstacles=None,
+    obstacle_velocities=None,
+    fused_tick: bool = False,
+    gaussian: str = "hash",
+    device="cuda",
+    **overrides,
+) -> tuple[MPPISolver, MPPIParams]:
+    """Goal-point MPPI with soft obstacle costs, the JAX preset.
+
+    The configuration of the reference's test/test_mppi_diff_obs.py:631-667:
+    K = 1 500, T = 50, dt = 0.05, λ temperature (λ = 1), α = 1, Q = diag(30,
+    5, 9), the action cost diag(0.1, 0.1) on the clamped action
+    (``control_weight``), u ∈ ±2, Σ = diag(0.5, 0.3), the exponential soft
+    obstacle cost (safety distance 2.0, weight 100) with
+    ``obstacle_velocities`` drifting the obstacles during the rollout, the
+    Savitzky-Golay filter (window min(51, T), order 3). The path is the one
+    goal pose (W = 1), so every tick reports status 1, end of path.
+    ``fused_tick`` binds the fused tick (soft collision, the filter in its
+    epilogue) and rounds K up to a multiple of 128 (1 500 → 1 536).
+
+    ``gaussian``: the JAX default ``"popcount"`` is a TPU hardware
+    generator; the port draws from the hash stream, so its default is
+    ``"hash"`` and any other value raises ``ValueError``. ``overrides``
+    replace any :class:`MPPIConfig` field. Params live on ``device``."""
+    _reject_unported(gaussian=gaussian)
+    device = resolve_device(device)
+    if fused_tick:
+        num_samples = _lane_rounded_samples(num_samples)
+    kw = dict(
+        num_samples=num_samples,
+        horizon=horizon,
+        dim_x=3,
+        dim_u=2,
+        dt=dt,
+        lam=1.0,
+        alpha=1.0,
+        exploration=0.0,
+        temperature=Temperature.LAMBDA,
+        filter=SmoothingFilter.SAVGOL,
+        filter_window=min(51, horizon),
+        savgol_polyorder=3,
+        waypoint_search_len=1,
+    )
+    kw.update(overrides)
+    cfg = MPPIConfig(**kw)
+    weights = [30.0, 5.0, 9.0]
+    params = MPPIParams(
+        sigma=_f32([[0.5, 0.0], [0.0, 0.3]], device),
+        stage_weight=_f32(weights, device),
+        terminal_weight=_f32(weights, device),
+        control_weight=_f32([0.1, 0.1], device),
+        u_min=_f32([-2.0, -2.0], device),
+        u_max=_f32([2.0, 2.0], device),
+        ref_path=_f32(goal, device)[None, :],
+        obstacles=_f32(obstacles, device),
+        obstacle_velocities=_f32(obstacle_velocities, device),
+    )
+
+    def step(x, u):
+        return euler_step(unicycle, x, u, dt)
+
+    soft = dict(soft_safety_distance=2.0, soft_weight=100.0)
+    stage, terminal = make_tracking_costs(
+        cfg, collision="none" if obstacles is None else "soft", **soft
+    )
+    # collision="soft" is no obstacle when params.obstacles is None
+    tick_fn = (make_cuda_diffdrive_tick(cfg, gaussian=gaussian, collision="soft",
+                                        fuse_epilogue=True, **soft)
+               if fused_tick else None)
+    solver = MPPISolver(cfg, step, stage, terminal, tick_fn=tick_fn, gaussian=gaussian,
+                        device=device)
+    return solver, params
+
+
 def racecar_mppi(
     ref_path,
     num_samples: int = 100,
@@ -171,18 +336,14 @@ def racecar_mppi(
     kw.update(overrides)
     cfg = MPPIConfig(**kw)
     weights = [50.0, 50.0, 1.0, 20.0]
-
-    def f32(a):
-        return None if a is None else torch.as_tensor(a, dtype=torch.float32).to(device)
-
     params = MPPIParams(
-        sigma=f32([[0.5, 0.0], [0.0, 0.1]]),
-        stage_weight=f32(weights),
-        terminal_weight=f32(weights),
-        u_min=f32([-0.523, -2.0]),
-        u_max=f32([0.523, 2.0]),
-        ref_path=f32(ref_path),
-        obstacles=f32(obstacles),
+        sigma=_f32([[0.5, 0.0], [0.0, 0.1]], device),
+        stage_weight=_f32(weights, device),
+        terminal_weight=_f32(weights, device),
+        u_min=_f32([-0.523, -2.0], device),
+        u_max=_f32([0.523, 2.0], device),
+        ref_path=_f32(ref_path, device),
+        obstacles=_f32(obstacles, device),
     )
     if iso_xy is None:
         iso_xy = weights[0] == weights[1]
@@ -397,12 +558,11 @@ def dnn_mppi(ref_path, learned_fn: Callable[[torch.Tensor], torch.Tensor],
     kw.update(overrides)
     cfg = MPPIConfig(**kw)
 
-    def f32(a):
-        return torch.as_tensor(a, dtype=torch.float32).to(device)
-
-    params = MPPIParams(sigma=f32([[0.2, 0.0], [0.0, 0.1]]), stage_weight=f32([8.0, 8.0, 2.0]),
-                        terminal_weight=f32([8.0, 8.0, 2.0]), u_min=f32([-3.0, -3.14]),
-                        u_max=f32([3.0, 3.14]), ref_path=f32(ref_path))
+    weights = [8.0, 8.0, 2.0]
+    params = MPPIParams(sigma=_f32([[0.2, 0.0], [0.0, 0.1]], device),
+                        stage_weight=_f32(weights, device), terminal_weight=_f32(weights, device),
+                        u_min=_f32([-3.0, -3.14], device), u_max=_f32([3.0, 3.14], device),
+                        ref_path=_f32(ref_path, device))
     stage, terminal = make_tracking_costs(cfg)
     return MPPISolver(cfg, step, stage, terminal, device=device), params
 
@@ -430,5 +590,6 @@ def dnn_nmpc(goal, learned_fn: Callable[[torch.Tensor], torch.Tensor], N: int = 
     return solver, params
 
 
-__all__ = ["diff_drive_nmpc", "dnn_mppi", "dnn_nmpc", "flagship", "four_wheel_nmpc",
-           "mppi_fleet", "nmpc_fleet", "racecar_mppi", "racecar_nmpc"]
+__all__ = ["diff_drive_mppi", "diff_drive_nmpc", "dnn_mppi", "dnn_nmpc", "flagship",
+           "four_wheel_nmpc", "goal_seeking_mppi", "mppi_fleet", "nmpc_fleet", "racecar_mppi",
+           "racecar_nmpc"]

@@ -29,7 +29,10 @@ every case but the soft obstacles, whose ``expf`` is the C library's and
 not PyTorch's) and within ``TOL["S"]`` elsewhere. w, Σ w·ε, ρ, η, u_new and
 u_shift stay within ``chip_smoke.TOL`` of the plain versions; the fused
 tick's two hash-ε routes (ε stored, ε drawn again) are bit-equal, and a
-second call repeats the first. Skips without g++.
+second call repeats the first. The goal-seeking row's combination (W = 1,
+three soft drifting obstacles, the action cost, the SavGol(50, 3)
+epilogue, K = 640 in chunks of 214, 214 and 212) runs through every G
+build, ε injected and drawn. Skips without g++.
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ from dnn_mppi_mpc_tpu_torch.ops.cuda import mppi_tick_blocked as mtb
 from dnn_mppi_mpc_tpu_torch.ops.cuda import rollout as ro
 from dnn_mppi_mpc_tpu_torch.ops.cuda.common import softmax_plain, weighted_noise_plain
 from dnn_mppi_mpc_tpu_torch.ops.cuda.mathx import hash_noise
+from dnn_mppi_mpc_tpu_torch.ops.filters import filter_matrix
 
 T, DT, SEED = 6, 0.1, 0x2468ACE1
 SIGMA = np.array([[0.1, 0.02], [0.02, 0.05]])
@@ -293,6 +297,82 @@ def test_fused_tick_injected(libs, build, case):
     if case != "LAST":
         assert 0 < int((out["S"] > 10.0 if case == "soft drift" else out["S"] > 1e6).sum()) < K_SPLIT
     _check_tick("fused injected " + case, out, _tick_plain(common, eps, ft), g1["S"])
+
+
+# the suite's goal_seeking row in small: one goal row (W = 1, fewer rows than
+# every lane group past G = 1), three soft obstacles drifting, the action
+# cost, λ temperature with exploration 0 (n_exploit = K, γ = 0), and the
+# SavGol(50, 3) filter as the epilogue's Fᵀ at T = 50; K = 640 takes the
+# chunk layout of one sample a thread in chunks of 214, 214 and 212: the
+# last chunk partial
+GOAL_K, GOAL_T = 640, 50
+GOAL_OBSTACLES = [[5.0, 4.0, 0.5], [3.5, 3.5, 0.5], [2.0, 5.0, 0.5]]
+GOAL_VELOCITIES = [[0.018, 0.009], [-0.009, 0.009], [0.009, -0.018]]
+
+
+def _goal_tick(inject, emit=False, seed=11):
+    """One goal-seeking fused tick through ``launch_tick`` (ε injected, or
+    hash ε stored or drawn again), and the plain version on the ε used."""
+    rng = np.random.default_rng(seed)
+    sigma = np.diag([0.5, 0.3])
+    u = rng.normal(0.0, 0.5, (GOAL_T, 2))
+    u[:, 0] += 0.8
+    ft = f32(np.ascontiguousarray(filter_matrix("savgol", GOAL_T, 50, 3).T))
+    common = dict(
+        seed=torch.tensor([SEED]), u=f32(u), a=torch.zeros(GOAL_T, 2),
+        chol_sigma=f32(np.linalg.cholesky(sigma)), x0=f32([2.5, 2.0, 0.8]),
+        window=f32([[6.0, 6.0, 1.57]]), stage_w=f32([30.0, 5.0, 9.0]),
+        term_w=f32([30.0, 5.0, 9.0]), u_min=f32([-2.0, -2.0]), u_max=f32([2.0, 2.0]), dt=0.05,
+        n_exploit=float(GOAL_K), inv_temperature=1e-3,
+        obstacles=f32(GOAL_OBSTACLES), obstacle_velocities=f32(GOAL_VELOCITIES),
+        robot_radius=0.5, safety_margin_rate=1.5, soft_safety_distance=2.0, soft_weight=100.0,
+        control_weight=f32([0.1, 0.1]), K=GOAL_K, T=GOAL_T, W=1, last_only=False,
+        collision="soft", iso_xy=False)
+    eps = f32(rng.multivariate_normal(np.zeros(2), sigma, (GOAL_K, GOAL_T)))
+    out = mt.launch_tick(**common, filter_t=ft, eps=eps if inject else None,
+                         eps_mode=0 if inject else (1 if emit else 2), k_blk=GOAL_K)
+    if not inject:
+        eps = hash_noise(torch.tensor([SEED]), common["chol_sigma"], GOAL_K, GOAL_T, GOAL_K)
+    return out, eps, common, ft
+
+
+@pytest.fixture(scope="module")
+def goal_g1(libs):
+    """The G = 1 build's goal-seeking tick, ε injected and drawn."""
+    with running_on(libs["G1"]):
+        return {noise: _goal_tick(noise == "injected")[0] for noise in ("injected", "hash")}
+
+
+@pytest.mark.parametrize("build", [f"G{g}" for g in GROUPS])
+@pytest.mark.parametrize("noise", ["injected", "hash"])
+def test_goal_seeking_tick(libs, goal_g1, build, noise):
+    """The goal-seeking combination (at a temperature of 1/1 000, where the
+    weights spread over the samples): every output of every G build
+    bit-equal to the G = 1 build's and within TOL of the plain version (S
+    within TOL["S"]: the soft cost's expf is the C library's). Hash ε: the
+    stored and the drawn-again routes give the same bits."""
+    monkey = pytest.MonkeyPatch()
+    monkey.setattr(mt, "load_kernels", lambda: libs[build])
+    try:
+        layout = mt.chunk_scratch_floats(GOAL_K, GOAL_K, GOAL_T)
+    finally:
+        monkey.undo()
+    assert layout == 2 * 3 + GOAL_T * 3 * 2  # three chunks of 640: 214, 214, 212
+    inject = noise == "injected"
+    with running_on(libs[build]):
+        out, eps, common, ft = _goal_tick(inject)
+        stored = out if inject else _goal_tick(inject, emit=True)[0]
+    for name in ("S", "w", "w_eps", "stats", "u_new", "u_shift", "finite"):
+        assert torch.equal(out[name], goal_g1[noise][name]), name
+        assert torch.equal(stored[name], out[name]), name
+    S, w, w_eps, (u_new, u_shift, finite) = _tick_plain(common, eps, ft)
+    assert 0 < int((S > S.min() + 100.0).sum()) < GOAL_K  # the soft cost binds some
+    assert float(out["finite"]) == float(finite) == 1.0
+    _close("S", out["S"], S)
+    _close("w", out["w"], w)
+    _close("w_eps", out["w_eps"], w_eps)
+    _close("u_new", out["u_new"], u_new)
+    _close("u_shift", out["u_shift"], u_shift)
 
 
 @pytest.mark.parametrize("build", [f"G{g}" for g in GROUPS])

@@ -30,7 +30,12 @@ from dnn_mppi_mpc_tpu.solvers import mppi as jmppi
 from dnn_mppi_mpc_tpu_torch import config as tcfg
 from dnn_mppi_mpc_tpu_torch import presets
 from dnn_mppi_mpc_tpu_torch.models import euler_step, unicycle, unicycle_tile
-from dnn_mppi_mpc_tpu_torch.paths import circle_with_speed, lemniscate_with_speed, line
+from dnn_mppi_mpc_tpu_torch.paths import (
+    circle_with_speed,
+    lemniscate,
+    lemniscate_with_speed,
+    line,
+)
 from dnn_mppi_mpc_tpu_torch.solvers import mppi as tmppi
 from dnn_mppi_mpc_tpu_torch.solvers import sqp as tsqp
 
@@ -321,6 +326,18 @@ DEVICE_DEFAULTS = {
     "presets.flagship": lambda device: presets.flagship(1024, 20, **device),
     "presets.racecar_mppi": lambda device: presets.racecar_mppi(
         np.zeros((10, 4), np.float32), num_samples=128, horizon=5, fused_tick=True, **device),
+    "presets.diff_drive_mppi": lambda device: presets.diff_drive_mppi(
+        np.zeros((10, 3), np.float32), fused_tick=True, **device),
+    "presets.goal_seeking_mppi": lambda device: presets.goal_seeking_mppi(
+        [1.0, 1.0, 0.0], num_samples=128, horizon=5, obstacles=[[0.5, 0.5, 0.2]],
+        obstacle_velocities=[[0.1, 0.0]], fused_tick=True, **device),
+    "envs.Plant": lambda device: _envs().Plant(unicycle, 0.1, process_noise_std=[0.1] * 3,
+                                               **device),
+    "envs.WheelPlant": lambda device: _envs().plants.WheelPlant(0.1, **device),
+    "paths.lemniscate": lambda device: lemniscate(2.0, 8, **device),
+    "envs.collect_residual_dataset": lambda device: _envs().collect_residual_dataset(
+        lambda gen: ((lambda cs, x: (torch.zeros(2), cs)), None), lambda x, u: x,
+        lambda x, u: x, lambda gen: torch.zeros(3), 0, 1, 2, **device),
     "presets.mppi_fleet": lambda device: presets.mppi_fleet(2, 128, 5, **device),
     "params_from_numpy": lambda device: tcfg.params_from_numpy(
         np.eye(2), np.ones(3), np.ones(3), -np.ones(2), np.ones(2), np.zeros((4, 3)), **device),
@@ -357,6 +374,12 @@ DEVICE_DEFAULTS = {
     "presets.dnn_nmpc": lambda device: presets.dnn_nmpc([1.0, 0.0, 0.0], lambda f: f[..., :3],
                                                         N=5, **device),
 }
+
+
+def _envs():
+    from dnn_mppi_mpc_tpu_torch import envs
+
+    return envs
 
 
 def _learned():
@@ -400,6 +423,10 @@ def test_port_never_imports_jax():
         "import dnn_mppi_mpc_tpu_torch.utils.benchtime, dnn_mppi_mpc_tpu_torch._build\n"
         "import dnn_mppi_mpc_tpu_torch.parallel, dnn_mppi_mpc_tpu_torch.solvers.sqp\n"
         "import dnn_mppi_mpc_tpu_torch.testing.oracle_nmpc\n"
+        "import dnn_mppi_mpc_tpu_torch.envs, dnn_mppi_mpc_tpu_torch.envs.closed_loop\n"
+        "import dnn_mppi_mpc_tpu_torch.envs.plants, dnn_mppi_mpc_tpu_torch.envs.sensors\n"
+        "import dnn_mppi_mpc_tpu_torch.utils.logging\n"
+        "from dnn_mppi_mpc_tpu_torch.presets import diff_drive_mppi, goal_seeking_mppi\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'dnn_mppi_mpc_tpu'))\n"
         "assert not bad, bad\n"
