@@ -6,7 +6,8 @@ Counterpart of ``dnn_mppi_mpc_tpu/models/learned.py``:
   head (zero-initialized unless ``zero_init_head=False``);
 * :class:`BasicBlock1D`, :class:`BottleneckBlock1D` and :class:`ResNet1D` —
   the 1-D conv ResNet-18/50 over channel-last (B, L, C) inputs, BatchNorm
-  from its running statistics (the modules stay in eval mode), a tanh head;
+  from its running statistics in eval mode (the default) and Flax's batch
+  statistics and running-statistics update in train mode, a tanh head;
 * :class:`Standardizer` — the in-graph feature scaler (population std);
 * :func:`load_flax_mlp` / :func:`load_flax_resnet` — a Flax variable tree,
   given as nested dicts of numpy arrays, into these modules (the card's
@@ -74,8 +75,63 @@ def _conv(c_in: int, c_out: int, k: int, stride: int, padding: int, generator) -
     return conv
 
 
-def _bn(c: int) -> nn.BatchNorm1d:
-    bn = nn.BatchNorm1d(c, eps=BN_EPS, device="cpu")
+class _GroupSum(torch.autograd.Function):
+    """The sum of a tensor over a process group's ranks, with its gradient:
+    every rank's output is the sum, so each input's gradient is the sum of
+    the ranks' output gradients."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        out = x.clone()
+        torch.distributed.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        grad = grad.clone()
+        torch.distributed.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class FlaxBatchNorm1d(nn.BatchNorm1d):
+    """``BatchNorm1d`` whose train mode is Flax's ``nn.BatchNorm``: the batch
+    statistics over (B, L) with the biased variance E[x²] − E[x]² (Flax's
+    ``use_fast_variance``, clipped at 0) both to normalize and to update the
+    running statistics, ``running = 0.99·running + 0.01·batch`` (Flax's
+    momentum 0.99). A stock ``BatchNorm1d`` would need ``momentum=0.01`` (the
+    other sense) and would still update ``running_var`` with the unbiased
+    variance, n/(n − 1) off Flax's every step. Eval mode is the stock
+    module's, from the running statistics. With ``group`` set (the
+    data-parallel trainer sets it) the batch statistics are summed over the
+    group's ranks, so every rank normalizes by the whole minibatch's."""
+
+    FLAX_MOMENTUM = 0.99
+
+    def __init__(self, num_features: int, **kw) -> None:
+        super().__init__(num_features, eps=BN_EPS, **kw)
+        self.group = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        n = x.shape[0] * x.shape[2]
+        sums = torch.stack([x.sum((0, 2)), (x * x).sum((0, 2))])
+        if self.group is not None:
+            sums = _GroupSum.apply(sums, self.group)
+            n *= torch.distributed.get_world_size(self.group)
+        mean, mean2 = sums[0] / n, sums[1] / n
+        var = torch.clamp_min(mean2 - mean * mean, 0.0)
+        with torch.no_grad():
+            m = self.FLAX_MOMENTUM
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[:, None]) * mul[:, None] + self.bias[:, None]
+
+
+def _bn(c: int) -> FlaxBatchNorm1d:
+    bn = FlaxBatchNorm1d(c, device="cpu")
     bn.eval()
     return bn
 
@@ -180,8 +236,11 @@ class ResNet1D(nn.Module):
     regression head. ``variant='18'``: BasicBlock × [2, 2, 2, 2] after a
     3-wide stem; ``'50'``: Bottleneck × [3, 4, 6, 3] after a 7-wide stride-2
     stem and a 3-wide stride-2 max-pool. Then the mean over L, a linear
-    layer and tanh. The module stays in eval mode: BatchNorm uses its
-    running statistics, as the JAX package's ``train=False``."""
+    layer and tanh. The module starts in eval mode: BatchNorm uses its
+    running statistics, as the JAX package's ``train=False``; in train mode
+    (``.train()``, as the trainer's step sets it) BatchNorm normalizes by
+    the batch's statistics and updates the running ones as Flax's
+    ``train=True`` does (:class:`FlaxBatchNorm1d`)."""
 
     def __init__(self, out_dim: int, variant: str = "18", in_dim: int = 5, *, device="cuda",
                  generator: Optional[torch.Generator] = None) -> None:
@@ -448,15 +507,25 @@ def _as_standardizer(s, device) -> Optional[Standardizer]:
 
 def residual_from_train_state(model: nn.Module, tstate) -> Callable[[torch.Tensor], torch.Tensor]:
     """Bind a trained model and its scalers into a feature → residual
-    function. ``tstate`` is any object with ``params`` (a Flax variable tree
-    as numpy leaves, loaded into ``model`` first; None keeps the module's
-    own weights), ``in_scaler`` and ``out_scaler`` (Standardizers, or
-    anything with numpy-readable ``mean`` and ``std``, or None). A
-    :class:`ResNet1D` gets the L = 1 fold, as the JAX package inserts its
-    length axis."""
+    function. ``tstate`` has ``params``, ``in_scaler`` and ``out_scaler``:
+    the port's ``train.training.TrainState`` (``params`` the module's
+    ``state_dict``, every value a tensor: loaded with ``load_state_dict``,
+    strict), or any object whose ``params`` is a Flax variable tree as
+    numpy leaves (loaded with :func:`load_flax_mlp` / :func:`load_flax_resnet`),
+    or None (the module keeps its own weights); any other ``params`` raises
+    ``TypeError``. The scalers are Standardizers, anything with
+    numpy-readable ``mean`` and ``std``, or None. A :class:`ResNet1D` gets
+    the L = 1 fold, as the JAX package inserts its length axis."""
     is_resnet = isinstance(model, ResNet1D)
-    if tstate.params is not None:
-        (load_flax_resnet if is_resnet else load_flax_mlp)(model, tstate.params)
+    params = tstate.params
+    if isinstance(params, Mapping) and params and all(torch.is_tensor(v)
+                                                      for v in params.values()):
+        model.load_state_dict(params)
+    elif isinstance(params, Mapping):
+        (load_flax_resnet if is_resnet else load_flax_mlp)(model, params)
+    elif params is not None:
+        raise TypeError(f"params must be a state_dict, a Flax variable tree or None; got "
+                        f"{type(params).__name__}")
     device = next(model.parameters()).device
     return make_residual_fn(model, _as_standardizer(tstate.in_scaler, device),
                             _as_standardizer(tstate.out_scaler, device),
@@ -467,6 +536,7 @@ __all__ = [
     "BN_EPS",
     "BasicBlock1D",
     "BottleneckBlock1D",
+    "FlaxBatchNorm1d",
     "MLP",
     "ResNet1D",
     "Standardizer",

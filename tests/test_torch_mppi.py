@@ -6,12 +6,15 @@
   tests/test_mppi_tick.py::test_tick_closed_loop_matches_scan;
 * the scan path and the split-rollout path against the JAX ones (S rtol and
   atol 2e-4, w rtol 2e-4 atol 1e-6, controls rtol 1e-4 atol 1e-5);
-* routing, the guards on unported options, and that importing the port
-  never imports JAX.
+* routing, the guards on unported options, that importing the port never
+  imports JAX, and that the scripts that run only on the card read no name
+  they do not bind.
 """
 
 from __future__ import annotations
 
+import ast
+import builtins
 import dataclasses
 import pathlib
 import subprocess
@@ -373,6 +376,18 @@ DEVICE_DEFAULTS = {
         np.zeros((10, 3)), lambda f: f[..., :3], num_samples=16, horizon=4, **device),
     "presets.dnn_nmpc": lambda device: presets.dnn_nmpc([1.0, 0.0, 0.0], lambda f: f[..., :3],
                                                         N=5, **device),
+    "train.step_sequence": lambda device: _train().step_sequence(8, [1.0, 0.5], 2, **device),
+    "train.ramp_sequence": lambda device: _train().ramp_sequence(8, [0.1], [1.0], **device),
+    "train.sine_sequence": lambda device: _train().sine_sequence(8, [1.0], [2.0], 0.1, **device),
+    "train.random_sequence": lambda device: _train().random_sequence(
+        torch.Generator(), 8, [-1.0], [1.0], hold=2, **device),
+    "train.multisine_sequence": lambda device: _train().multisine_sequence(
+        torch.Generator(), 8, 2, **device),
+    "train.latin_hypercube": lambda device: _train().latin_hypercube(
+        torch.Generator(), 4, [[0.0, 1.0]], **device),
+    "train.ActorCritic": lambda device: _train().ActorCritic(2, 8, 1, obs_dim=2, **device),
+    "train.PixelActorCritic": lambda device: _train().PixelActorCritic(2, (4,), 8, size=8,
+                                                                       **device),
 }
 
 
@@ -386,6 +401,12 @@ def _learned():
     from dnn_mppi_mpc_tpu_torch.models import learned
 
     return learned
+
+
+def _train():
+    from dnn_mppi_mpc_tpu_torch import train
+
+    return train
 
 
 def _kern():
@@ -425,10 +446,12 @@ def test_port_never_imports_jax():
         "import dnn_mppi_mpc_tpu_torch.testing.oracle_nmpc\n"
         "import dnn_mppi_mpc_tpu_torch.envs, dnn_mppi_mpc_tpu_torch.envs.closed_loop\n"
         "import dnn_mppi_mpc_tpu_torch.envs.plants, dnn_mppi_mpc_tpu_torch.envs.sensors\n"
-        "import dnn_mppi_mpc_tpu_torch.utils.logging\n"
+        "import dnn_mppi_mpc_tpu_torch.utils.logging, dnn_mppi_mpc_tpu_torch.train\n"
+        "import dnn_mppi_mpc_tpu_torch.train.rl, dnn_mppi_mpc_tpu_torch.envs.render\n"
         "from dnn_mppi_mpc_tpu_torch.presets import diff_drive_mppi, goal_seeking_mppi\n"
         "new = set(sys.modules) - before\n"
-        "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'dnn_mppi_mpc_tpu'))\n"
+        "bad = sorted(m for m in new if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'dnn_mppi_mpc_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok', len(new))\n"
     )
@@ -437,8 +460,33 @@ def test_port_never_imports_jax():
     assert out.returncode == 0 and out.stdout.startswith("ok"), out.stderr
     for src in (REPO / "dnn_mppi_mpc_tpu_torch").rglob("*.py"):
         text = src.read_text()
-        assert "import jax" not in text and "from jax" not in text, src
+        for name in ("jax", "flax", "optax", "orbax"):
+            assert f"import {name}" not in text and f"from {name}" not in text, (src, name)
         assert "dnn_mppi_mpc_tpu." not in text.replace("dnn_mppi_mpc_tpu_torch", ""), src
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py"] + sorted(
+    str(p.relative_to(REPO)) for p in (REPO / "tools").glob("*.py")))
+def test_card_scripts_load_only_names_they_bind(script):
+    """These scripts run only on the card: a name read anywhere in one must
+    be bound somewhere in it (an import, a definition, an assignment, an
+    argument) or be a builtin, so a removed helper fails here and not after
+    minutes on the card."""
+    tree = ast.parse((REPO / script).read_text())
+    bound = set(dir(builtins)) | {"__file__"}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Name) and not isinstance(node.ctx, ast.Load):
+            bound.add(node.id)
+        elif isinstance(node, ast.arg):
+            bound.add(node.arg)
+        elif isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            bound.add(node.name)
+        elif isinstance(node, ast.ExceptHandler) and node.name:
+            bound.add(node.name)
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            bound.update((a.asname or a.name).split(".")[0] for a in node.names)
+    loaded = {n.id for n in ast.walk(tree) if isinstance(n, ast.Name) and isinstance(n.ctx, ast.Load)}
+    assert not loaded - bound, sorted(loaded - bound)
 
 
 @pytest.mark.cuda

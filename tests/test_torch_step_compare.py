@@ -1,0 +1,109 @@
+"""``chip_smoke.py`` phase 12's one-step compare, on the CPU: the card's
+training step is held against the CPU's step taken on the card's ReLU
+branches (``chip_smoke.ReluBranches``), and a branch may differ only where
+its pre-activation lies within the limit of zero (``branch_differences``).
+Here both sides run on the CPU, so they agree bit for bit; the tests check
+that imposing a run's own branches changes nothing, that a changed branch
+is counted with its margin and does change the gradients, that a branch
+taken far from zero reads a margin past the limit, and that the compare of
+one device with itself reads 0.
+"""
+
+from __future__ import annotations
+
+import copy
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke as cs
+from dnn_mppi_mpc_tpu_torch.models import learned as tl
+from dnn_mppi_mpc_tpu_torch.train import training as ttr
+
+
+@pytest.fixture(scope="module")
+def resnet_batch():
+    rng = np.random.default_rng(0)
+    net = tl.ResNet1D(out_dim=3, variant="18", device="cpu",
+                      generator=torch.Generator().manual_seed(0))
+    x = torch.tensor(rng.normal(size=(32, 1, 5)), dtype=torch.float32)
+    y = torch.tensor(rng.normal(size=(32, 3)), dtype=torch.float32)
+    return net, x, y
+
+
+def _step(net, x, y, given=None):
+    m = copy.deepcopy(net)
+    branches = cs.ReluBranches(given)
+    with branches:
+        ttr.make_train_step(m, torch.optim.SGD(m.parameters(), lr=1e-3))(x, y)
+    return {k: p.grad.detach().clone() for k, p in m.named_parameters()}, branches.inputs
+
+
+def _largest_rel(a, b):
+    return max(float((a[k] - b[k]).abs().max() / b[k].abs().max()) for k in b)
+
+
+def test_own_branches_change_nothing(resnet_batch):
+    grads, inputs = _step(*resnet_batch)
+    again, seen = _step(*resnet_batch, given=inputs)
+    assert len(inputs) == 17  # the stem, two in each of the eight blocks
+    for k in grads:
+        assert torch.equal(grads[k], again[k]), k
+    assert cs.branch_differences(inputs, seen) == {
+        "relu_calls": 17, "branches_differ": 0, "branch_margin": 0.0}
+
+
+@pytest.mark.parametrize("which", ["nearest zero", "farthest from zero"])
+def test_a_changed_branch_is_counted_with_its_margin(resnet_batch, which):
+    grads, inputs = _step(*resnet_batch)
+    call = 5
+    x = inputs[call]
+    flat = x.abs().flatten()
+    if which == "nearest zero":
+        nonzero = torch.nonzero(flat > 0).flatten()
+        at = int(nonzero[flat[nonzero].argmin()])
+    else:
+        at = int(flat.argmax())
+    given = [t.clone() for t in inputs]
+    given[call].view(-1)[at] = -given[call].view(-1)[at]
+    changed, seen = _step(*resnet_batch, given=given)
+    report = cs.branch_differences(given, seen)
+    margin = float(flat[at] / flat.max())
+    moved = _largest_rel(changed, grads)
+    print(which, report, f"gradients moved {moved:.3e}")
+    assert report["relu_calls"] == 17
+    # the gradients follow the branch: one unit of one row changing it moves
+    # them by a few per cent of each tensor's largest entry (4.6e-2 for the
+    # unit nearest zero here, 9.5e-5 of its layer's largest from zero)
+    assert moved > 1e-2
+    if which == "nearest zero":
+        assert report["branches_differ"] == 1
+        assert report["branch_margin"] == pytest.approx(margin, rel=1e-6)
+    else:
+        # the changed branch, and those downstream that it moves across zero
+        assert report["branches_differ"] > 1
+        assert report["branch_margin"] == 1.0 > cs.STEP_RTOL["resnet18"]
+
+
+def test_relu_call_counts_must_agree(resnet_batch):
+    _, inputs = _step(*resnet_batch)
+    with pytest.raises(AssertionError, match="relu calls"):
+        cs.branch_differences(inputs, inputs[:-1])
+
+
+@pytest.mark.parametrize("name", ["mlp", "resnet18"])
+def test_step_line_on_one_device_is_exact(resnet_batch, name):
+    net, x, y = resnet_batch
+    if name == "mlp":
+        net, x = tl.MLP(out_dim=3, hidden=32, depth=2, device="cpu",
+                        generator=torch.Generator().manual_seed(0)), x[:, 0]
+    opt = ttr.make_optimizer(net, ttr.TrainConfig(learning_rate=1e-3))
+    ttr.make_train_step(net, opt)(x, y)
+    line = cs.step_line(name, net, opt.state_dict(), ttr.TrainConfig(learning_rate=1e-3), x, y)
+    print(line)
+    assert line["ok"]
+    assert line["relu_calls"] == (17 if name == "resnet18" else 0)
+    for key in ("mse_rel_err", "grad_rel_err", "param_rel_err", "branch_margin"):
+        assert line[key] == 0.0, key
+    assert line["branches_differ"] == 0
