@@ -40,22 +40,31 @@ run over the contraction index only, adding terms in the kernel's order).
 Nothing falls back: on the card a shape the kernel was not instantiated for
 raises ``ValueError``. Everything runs in float32, as in the JAX kernels.
 
-The kernel is invisible to autograd, so an input that requires grad raises
-``ValueError``: the implicit-function-theorem backward of the JAX package
-(``solvers/qp.py ift_qp_vjp``) comes with a later slice. Until then the
-differentiable route is the torch QP backend
-(``NMPCSolver.solve_fn(differentiable=True)``).
+Both wrappers differentiate (the JAX package's ``:706
+make_vmappable_pallas_qp`` ``custom_vjp``): when grad mode is on and an
+input requires grad, the solve runs as a ``torch.autograd.Function`` whose
+forward is the same kernel (or plain version) and whose backward is
+``backward="ift"`` (the default: ``solvers.qp.ift_qp_vjp``, one adjoint
+Riccati solve at the solution against the barrier-augmented Hessians, with
+the forward's δ and stiffnesses) or ``"recompute"`` (the cotangent pulled
+back through ``solvers.qp.barrier_qp_solve`` re-run under autograd: the
+exact gradient of the algorithm). kkt is a certificate and carries no
+gradient. The backward is plain PyTorch, as the JAX package's is XLA.
+Otherwise the wrappers run exactly the forward alone.
 """
 
 from __future__ import annotations
 
 from functools import lru_cache
+from types import SimpleNamespace
 from typing import Optional
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..._build import QP_TABLES, DmmQPArgs, launch
+from ..filters import full_f32
 from ..sampling import small_lu_solve
 from .common import MAX_SMEM_OPT_IN, on_cuda
 
@@ -90,16 +99,6 @@ def qp_schedule(num_iters: int, mu0: float, kappa: float, delta: float,
     misc = np.array([delta, stiffness, h_stiffness, h_slope, 1e-9], dtype=f)
     return (torch.from_numpy(np.ascontiguousarray(mus, dtype=f)).to(device),
             torch.from_numpy(misc).to(device))
-
-
-def _reject_grad(qp, dx0) -> None:
-    tensors = [dx0] + [getattr(qp, name) for name in QP_LEAF_NDIM]
-    if any(t is not None and t.requires_grad for t in tensors):
-        raise ValueError(
-            "the fused QP kernel has no backward yet (the implicit-function-theorem "
-            "backward comes in a later slice): use the torch QP backend, e.g. "
-            "NMPCSolver.solve_fn(differentiable=True), to differentiate the solve"
-        )
 
 
 def batch_leaves(qp, dx0: torch.Tensor, dtype: Optional[torch.dtype] = None):
@@ -436,17 +435,25 @@ def _on_card(qp, dx0) -> bool:
 def fused_barrier_qp_solve(qp, dx0: torch.Tensor, num_iters: int = 12, mu0: float = 1.0e-1,
                            kappa: float = 0.35, delta: float = 1.0e-3,
                            stiffness: Optional[float] = None,
-                           h_stiffness: Optional[float] = None, h_slope: float = 0.0):
+                           h_stiffness: Optional[float] = None, h_slope: float = 0.0,
+                           backward: str = "ift"):
     """Solve one relaxed-barrier QP (``solvers.qp.BoxedQPData`` leaves
     without a batch dimension, dx0 (nx,)) in one launch: (δX (N+1, nx),
     δU (N, nu), kkt ()), float32. ``stiffness`` defaults to 1/δ² and
     ``h_stiffness`` to ``stiffness``; ``h_slope`` is the L1 slope of the
     soft h rows. N is bounded by shared memory (:func:`qp_max_horizon`;
-    ``ValueError`` beyond it)."""
-    _reject_grad(qp, dx0)
+    ``ValueError`` beyond it). ``backward`` ("ift" or "recompute") is the
+    gradient rule when an input requires grad."""
+    _check_backward(backward)
     if dx0.dim() != 1 or qp.A.dim() != 3:
         raise ValueError("fused_barrier_qp_solve takes one problem (dx0 (nx,), A (N, nx, nx)); "
                          "use batched_fused_barrier_qp_solve for a fleet")
+    if _needs_grad(qp, dx0):
+        dX, dU, kkt = _solve_with_grad(
+            fused_barrier_qp_solve, qp, dx0, backward,
+            dict(num_iters=num_iters, mu0=mu0, kappa=kappa, delta=delta, stiffness=stiffness,
+                 h_stiffness=h_stiffness, h_slope=h_slope))
+        return dX[0], dU[0], kkt[0]
     if not _on_card(qp, dx0):
         return fused_barrier_qp_solve_plain(qp, dx0, num_iters, mu0, kappa, delta, stiffness,
                                             h_stiffness, h_slope)
@@ -463,13 +470,21 @@ fused_barrier_qp_solve.launches = 0
 def batched_fused_barrier_qp_solve(qp, dx0: torch.Tensor, num_iters: int = 12,
                                    mu0: float = 1.0e-1, kappa: float = 0.35,
                                    delta: float = 1.0e-3, stiffness: Optional[float] = None,
-                                   h_stiffness: Optional[float] = None, h_slope: float = 0.0):
+                                   h_stiffness: Optional[float] = None, h_slope: float = 0.0,
+                                   backward: str = "ift"):
     """Solve B independent relaxed-barrier QPs in one launch, one warp per
     problem: (δX (B, N+1, nx), δU (B, N, nu), kkt (B,)), float32. Every leaf
     (and dx0) carries a leading B or is shared by all members; member b's
     result is the per-problem solve of member b's problem. N is bounded by
-    shared memory (:func:`qp_max_horizon`; ``ValueError`` beyond it)."""
-    _reject_grad(qp, dx0)
+    shared memory (:func:`qp_max_horizon`; ``ValueError`` beyond it).
+    ``backward`` as in :func:`fused_barrier_qp_solve`; a shared leaf's
+    gradient is the sum over the members."""
+    _check_backward(backward)
+    if _needs_grad(qp, dx0):
+        return _solve_with_grad(
+            batched_fused_barrier_qp_solve, qp, dx0, backward,
+            dict(num_iters=num_iters, mu0=mu0, kappa=kappa, delta=delta, stiffness=stiffness,
+                 h_stiffness=h_stiffness, h_slope=h_slope))
     if not _on_card(qp, dx0):
         return batched_fused_barrier_qp_solve_plain(qp, dx0, num_iters, mu0, kappa, delta,
                                                     stiffness, h_stiffness, h_slope)
@@ -482,7 +497,94 @@ def batched_fused_barrier_qp_solve(qp, dx0: torch.Tensor, num_iters: int = 12,
 
 batched_fused_barrier_qp_solve.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# the backward
+# ---------------------------------------------------------------------------
+
+
+BACKWARDS = ("ift", "recompute")
+
+
+def _check_backward(backward: str) -> None:
+    if backward not in BACKWARDS:
+        raise ValueError(f"backward must be one of {BACKWARDS}, got {backward!r}")
+
+
+def _needs_grad(qp, dx0) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad
+        for t in [dx0] + [getattr(qp, n) for n in QP_LEAF_NDIM])
+
+
+class _BarrierQP(torch.autograd.Function):
+    """The fused QP on (B, …) leaves with a backward: the forward is the
+    kernel (the plain version on CPU tensors) on the leaves in float32,
+    counted as ``wrapper``'s launch (or its plain version's call); the
+    backward is ``backward``'s rule in the leaves' own dtype, as the JAX
+    rule runs in the QP's. Its inputs are the leaves after
+    ``batch_leaves``' expand, so autograd sums a shared leaf's gradient
+    over the members."""
+
+    @staticmethod
+    def forward(ctx, wrapper, kw: dict, backward: str, dx0, *tables):
+        leaves = {n: None if t is None else t.to(torch.float32)
+                  for n, t in zip(QP_LEAF_NDIM, tables)}
+        x0 = dx0.to(torch.float32)
+        if on_cuda(x0, **leaves):
+            dX, dU, kkt = _launch(leaves, x0, x0.shape[0], **kw)
+            wrapper.launches += 1
+        else:
+            _PLAIN[wrapper].calls += 1
+            dX, dU, kkt = _plain(SimpleNamespace(**leaves), x0, **kw)
+        ctx.mark_non_differentiable(kkt)
+        ctx.save_for_backward(dx0, dX, dU, *tables)
+        ctx.kw, ctx.rule = kw, backward
+        return dX, dU, kkt
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ct_X, ct_U, _ct_kkt):
+        # local: solvers/qp.py imports this module
+        from ...solvers.qp import BoxedQPData, ift_qp_vjp
+
+        dx0, dX, dU, *tables = ctx.saved_tensors
+        qp = BoxedQPData(*tables)
+        if ctx.rule == "ift":
+            bar_qp, bar_x0 = ift_qp_vjp(qp, dx0, dX, dU, ct_X, ct_U, **ctx.kw)
+        else:
+            bar_qp, bar_x0 = _recompute_vjp(qp, dx0, ct_X, ct_U, ctx.kw)
+        return (None, None, None, bar_x0, *bar_qp)
+
+
+def _recompute_vjp(qp, dx0, ct_X, ct_U, kw: dict):
+    """The JAX recompute rule: ``solvers.qp.barrier_qp_solve`` re-run under
+    autograd and the cotangents pulled back through it."""
+    from ...solvers.qp import BoxedQPData, barrier_qp_solve
+
+    with torch.enable_grad(), full_f32():
+        src = [None if t is None else t.detach().requires_grad_() for t in qp]
+        x0 = dx0.detach().requires_grad_()
+        dX, dU = barrier_qp_solve(BoxedQPData(*src), x0, **kw)
+        grads = iter(torch.autograd.grad((dX, dU), [t for t in src if t is not None] + [x0],
+                                         (ct_X.to(dX.dtype), ct_U.to(dU.dtype)),
+                                         allow_unused=True))
+        # an absent leaf, or one the solve does not reach, gets no gradient
+        bars = [None if t is None else next(grads) for t in src]
+    return BoxedQPData(*bars), next(grads)
+
+
+def _solve_with_grad(wrapper, qp, dx0, backward: str, kw: dict):
+    """``wrapper``'s solve through :class:`_BarrierQP`: (B, …) outputs."""
+    leaves, x0, _, _ = batch_leaves(qp, dx0)
+    return _BarrierQP.apply(wrapper, kw, backward, x0, *(leaves[n] for n in QP_LEAF_NDIM))
+
+
+_PLAIN = {fused_barrier_qp_solve: fused_barrier_qp_solve_plain,
+          batched_fused_barrier_qp_solve: batched_fused_barrier_qp_solve_plain}
+
 __all__ = [
+    "BACKWARDS",
     "QP_LEAF_NDIM",
     "SUPPORTED_DIMS",
     "TABLES",

@@ -16,6 +16,9 @@ same leading B or be shared. The QP goes to ``cfg.qp_backend``: ``"torch"``
 through) or ``"kernel"`` (the fused CUDA kernel: one problem through
 ``fused_barrier_qp_solve``, a fleet through
 ``batched_fused_barrier_qp_solve``; their plain versions on CPU tensors).
+Both backends differentiate: the kernel's gradient is the
+implicit-function-theorem rule at the QP's solution
+(:func:`~.qp.ift_qp_vjp`).
 
 The tick never waits for the card: the merit line search picks its step by
 ``argmin`` and tensor indexing, no Python ``bool`` is taken of a tensor, and
@@ -439,8 +442,8 @@ class NMPCSolver:
         self._h_fn = h_fn
         kw = dict(y_x_fn=y_x_fn, y_fn=y_fn, y_e_fn=y_e_fn)
         self._core = functools.partial(sqp_solve, cfg, step, h_fn, **kw)
-        # the torch-backend twin: the route autograd can go through
-        # (solve_fn / batched_solve with differentiable=True)
+        # the torch-backend twin, whose gradient is the exact derivative of
+        # its own forward (solve_fn / batched_solve with differentiable=True)
         if cfg.qp_backend == "kernel":
             torch_cfg = dataclasses.replace(cfg, qp_backend="torch")
             self._torch_core = functools.partial(sqp_solve, torch_cfg, step, h_fn, **kw)
@@ -461,17 +464,32 @@ class NMPCSolver:
         return self._core(params, state, x0)
 
     def solve_fn(self, differentiable: bool = False):
-        """The tick as a function ``(params, state, x0) → (u0, state, aux)``.
-        ``differentiable=True`` gives the torch-QP twin, whose result
-        autograd can differentiate; the kernel backend raises on inputs that
-        require grad."""
+        """The tick as a function ``(params, state, x0) → (u0, state, aux)``,
+        for closed loops built around it and autograd through the
+        controller.
+
+        Both backends differentiate: on ``qp_backend="kernel"`` the QP
+        wrapper carries a backward whose rule is the implicit-function
+        theorem, one adjoint Riccati solve at the QP's solution
+        (``solvers/qp.py ift_qp_vjp``), while the forward stays the kernel.
+        It is exact for a converged QP solve. ``differentiable=True`` gives
+        the torch-QP twin instead, whose gradient is the exact derivative of
+        its own forward: the choice when checking against finite
+        differences, at the torch QP's slower forward."""
         return self._torch_core if differentiable else self._core
 
     def batched_solve(self, differentiable: bool = False):
         """The fleet solve ``(params, states, x0s) → (u0s, states, auxs)`` on
         states with a leading member axis B: one pass of batched ops, and
         with ``qp_backend="kernel"`` one launch of the batched QP kernel per
-        SQP iteration for the whole fleet."""
+        SQP iteration for the whole fleet (for fleets split over ranks,
+        ``parallel.make_sharded_nmpc_fleet``).
+
+        The kernel backend differentiates through the batched QP's IFT
+        backward (see :meth:`solve_fn`); a params leaf shared by the fleet
+        gets the sum of the members' gradients. ``differentiable=True``
+        builds the fleet on the torch-QP twin, whose gradient is the exact
+        derivative of its own forward."""
         core = self._torch_core if differentiable else self._core
 
         def fleet(params: OCPParams, states: NMPCState, x0s: torch.Tensor):

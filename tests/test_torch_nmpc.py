@@ -480,8 +480,10 @@ def test_batched_solve_rejects_a_single_state():
 
 def test_differentiable_route_takes_gradients():
     """solve_fn(differentiable=True) is the torch-QP twin: autograd goes
-    through the whole tick; the kernel backend refuses inputs that require
-    grad (its backward comes later)."""
+    through the whole tick; the kernel backend's ``solve`` differentiates
+    too, through the QP kernel's IFT backward (exact for a converged solve,
+    which 4 iterations are not; held against the twin and JAX in
+    tests/test_torch_diff_nmpc.py)."""
     s, p = presets.diff_drive_nmpc(GOAL, N=6, sqp_iters=1, qp_iters=4, qp_backend="kernel",
                                    device="cpu")
     goal = torch.tensor(GOAL, requires_grad=True)
@@ -490,8 +492,11 @@ def test_differentiable_route_takes_gradients():
     u0, _, _ = s.solve_fn(differentiable=True)(pg, s.init(x0), x0)
     (g,) = torch.autograd.grad(u0.sum(), goal)
     assert torch.isfinite(g).all() and float(g.abs().sum()) > 0
-    with pytest.raises(ValueError, match="later slice"):
-        s.solve(pg, s.init(x0), x0)
+    kern.reset_counts()
+    u0_k, _, _ = s.solve(pg, s.init(x0), x0)
+    assert kern.fused_barrier_qp_solve_plain.calls == 1
+    (g_k,) = torch.autograd.grad(u0_k.sum(), goal)
+    assert g_k.shape == goal.shape and torch.isfinite(g_k).all()
 
 
 # --- the oracle copy and the carry-across functions ------------------------------------

@@ -21,8 +21,9 @@
   by member against the port's per-problem plain version (2e-5, as
   tests/test_riccati_qp.py:199-207 holds the two JAX kernels), with shared
   leaves broadcast, and at B = 130, N = 4;
-* the guards: an input that requires grad, an uninstantiated (nx, nu) on the
-  card, the JAX backend names in ``SQPConfig``.
+* the guards: an input that requires grad takes gradients (an unknown
+  backward rule raises), an uninstantiated (nx, nu) on the card, the JAX
+  backend names in ``SQPConfig``.
 
 Every comparison prints its largest error.
 """
@@ -293,12 +294,20 @@ def test_fused_qp_plain_matches_torch_backend():
 
 @pytest.mark.parametrize("wrapper", ["fused_barrier_qp_solve", "batched_fused_barrier_qp_solve"])
 def test_requires_grad_raises(wrapper):
+    """An input that requires grad takes the differentiable route: both
+    wrappers return finite gradients (the plain version forward, the IFT
+    backward, tests/test_torch_diff_nmpc.py holds them against JAX); only an
+    unknown backward rule raises."""
     leaves, dx0 = _case(0, False, 0, 4, 3, 2)
     qp = _torch(leaves)
     qp = qp._replace(qx_base=qp.qx_base.requires_grad_())
     x0 = torch.tensor(dx0) if wrapper == "fused_barrier_qp_solve" else torch.tensor(dx0)[None]
-    with pytest.raises(ValueError, match="later slice"):
-        getattr(kern, wrapper)(qp, x0, num_iters=2)
+    dX, dU, kkt = getattr(kern, wrapper)(qp, x0, num_iters=2)
+    assert dX.requires_grad and dU.requires_grad and not kkt.requires_grad
+    (g,) = torch.autograd.grad(dX.sum() + dU.sum(), qp.qx_base)
+    assert g.shape == qp.qx_base.shape and torch.isfinite(g).all() and float(g.abs().sum()) > 0
+    with pytest.raises(ValueError, match="backward must be one of"):
+        getattr(kern, wrapper)(qp, x0, num_iters=2, backward="unrolled")
 
 
 def test_per_problem_wrapper_rejects_a_batch():

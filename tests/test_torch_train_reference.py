@@ -210,9 +210,10 @@ def test_chip_smoke_tracking_jax_references(pipeline):
                                                cs.DEPLOY_TICKS, range(cs.DEPLOY_EPISODES)),
                "rmse_dnn_m": tracking_rmse(cs, net, cs.DEPLOY_TICKS, range(cs.DEPLOY_EPISODES))}
     print("JAX CPU references:", got, "ratio", got["rmse_dnn_m"] / got["rmse_nominal_m"])
-    # JAX's own run misses the ratio gate the card is held to (1.36 against
-    # 1.15: at this plant's small wheel error its corrected model predicts a
-    # step better but does not track better here); it meets the absolute one
+    # JAX's own run is not held to the ratio gate the card is held to (1.15):
+    # over keys 0-9 it reads 1.11, over 0-19 1.36 (at this plant's small
+    # wheel error its corrected model predicts a step better but does not
+    # track better here); it meets the absolute one
     assert got["rmse_dnn_m"] < cs.RMSE_LIMIT and got["rmse_nominal_m"] < cs.RMSE_LIMIT
     for key, value in got.items():
         np.testing.assert_allclose(value, cs.TRAIN_JAX_REFERENCE[key], rtol=0.0, atol=2e-2,
