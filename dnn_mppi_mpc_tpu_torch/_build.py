@@ -51,14 +51,14 @@ class DmmArgs(ctypes.Structure):
         for name in (
             "seed", "u", "a", "chol", "x0", "window", "stage_w", "term_w",
             "u_min", "u_max", "obstacles", "control_w", "filter_t", "eps",
-            "S", "w", "w_eps", "stats", "u_new", "u_shift", "finite", "scratch",
+            "S", "w", "w_eps", "stats", "u_new", "u_shift", "finite", "scratch", "wp_adv",
         )
     ] + [
         (name, ctypes.c_int)
         for name in (
             "K", "T", "W", "n_obs", "k_blk", "eps_mode", "iso_xy",
             "last_only", "obs_mode", "drift", "fuse_epilogue", "block_offset",
-            "s_only", "scratch_floats",
+            "s_only", "scratch_floats", "carry_span",
         )
     ] + [
         (name, ctypes.c_float)
@@ -111,13 +111,13 @@ class DmmGenericArgs(ctypes.Structure):
         for name in (
             "seed", "u", "a", "chol", "x0", "window", "stage_w", "term_w",
             "u_min", "u_max", "obstacles", "filter_t", "eps", "S", "w", "w_eps",
-            "stats", "u_new", "u_shift", "finite", "scratch",
+            "stats", "u_new", "u_shift", "finite", "scratch", "wp_adv",
         )
     ] + [
         (name, ctypes.c_int)
         for name in (
             "model", "K", "T", "W", "n_track", "n_obs", "eps_mode", "last_only",
-            "obs_mode", "drift", "wrap_yaw", "fuse_epilogue", "scratch_floats",
+            "obs_mode", "drift", "wrap_yaw", "fuse_epilogue", "scratch_floats", "carry_span",
         )
     ] + [
         (name, ctypes.c_float)

@@ -52,8 +52,9 @@ class SmoothingFilter(enum.Enum):
 class MPPIConfig:
     """Static MPPI solver configuration (fields as in the JAX package).
 
-    ``waypoint_carry="rollout"`` is not implemented yet: the solver rejects
-    it with ``ValueError`` rather than ignoring it.
+    ``waypoint_carry`` and ``waypoint_persist`` are checked where a step or a
+    binder uses them (``solvers/mppi.py``), as in JAX: an unknown mode, or
+    the per-rollout carry on a path without it, raises ``ValueError``.
     """
 
     num_samples: int  # K
@@ -74,7 +75,26 @@ class MPPIConfig:
     rollout_var_cost: float = 0.0
     rollout_var_discount: float = 0.95
     use_kernel: bool = False  # split CUDA rollout kernel on the scan path
-    waypoint_carry: str = "tick"  # only "tick" is implemented
+    waypoint_carry: str = "tick"  # nearest-waypoint window anchoring:
+    # * "tick"    — one window per control tick: every rollout state queries
+    #   the same [start, start + W) window
+    # * "rollout" — each rollout carries its own monotone window start
+    #   through the rollout (idx_{t+1} = argmin over [idx_t, idx_t + W)), the
+    #   pure form of the reference's stateful in-cost lookup: the window
+    #   creeps ahead of the robot during the solve, which is what produces
+    #   the reference demo's forward progress (the tracking cost has no
+    #   progress term). The scan path, the diff-drive fused tick and the
+    #   generic tick implement it; the other kernels raise.
+    waypoint_persist: str = "none"  # cross-tick carry in "rollout" mode:
+    # "none" keeps the tick-level window advance; "max" carries the furthest
+    # rollout-carried index into the next tick's window start (the
+    # reference's prev_way_point_idx keeping the last sample's final index).
+    # The end-of-path status still judges the tick-level index.
+    carry_window_len: Optional[int] = None  # "rollout" mode on the fused
+    # kernels: the rows gathered from the tick anchor, which must cover the
+    # furthest index a rollout can reach (the per-step search span stays
+    # waypoint_search_len). None → waypoint_search_len + horizon (at most
+    # about one waypoint a step); too few rows cut the lookahead short.
     time_varying_dynamics: bool = False  # dynamics_step(x, u, t) (scan path)
     compute_optimal_traj: bool = False  # (T, nx) diagnostic rollout of u_new
 

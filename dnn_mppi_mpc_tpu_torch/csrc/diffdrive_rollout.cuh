@@ -8,7 +8,13 @@
 // window with the first-strict-< tie rule, γ·uᵀΣ⁻¹v energy term, optional
 // diagonal action cost, circle (×1e7) or soft obstacles with drift measured
 // from rollout start (terminal cost at the initial positions), SUM or LAST
-// accumulation.
+// accumulation. With waypoint_carry="rollout" (DmmArgs::carry_span > 0,
+// mppi_tick.py:493-527 and 594-650) each sample carries its own window
+// start, an int from row 0 of the carry window, through the rollout: at each
+// step the masked search over [idx, idx + span) (dmm_carried_row) gives the
+// step's rows and the next idx; the terminal cost searches from the final
+// idx without advancing it, and the furthest final idx over K goes to
+// wp_adv.
 //
 // Layout: a group of G consecutive lanes of a warp (G a power of two, 1 to
 // 8, a template constant; the launcher picks it from the launch's sample
@@ -35,6 +41,16 @@
 
 #include "hash_normal.cuh"
 #include "window_search.cuh"
+
+// The furthest of the warp's carried window starts into *out (atomicMax:
+// an int maximum, so the result does not depend on the blocks' order). Every
+// lane of the warp calls it; a group past K holds sample K − 1's start,
+// which a live group holds too.
+__device__ __forceinline__ void dmm_carry_max(int idx, int* out) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) idx = max(idx, __shfl_xor_sync(kFullMask, idx, o));
+  if ((threadIdx.x & 31) == 0) atomicMax(out, idx);
+}
 
 // Argument block of every C entry point. Field order is mirrored by the
 // ctypes.Structure in dnn_mppi_mpc_tpu_torch/_build.py: pointers first,
@@ -65,6 +81,8 @@ struct DmmArgs {
   float* u_shift;           // (T, 2)
   float* finite;            // (1,) 1.0 when the update was applied
   float* scratch;           // the chunked reductions' partials (dmm_chunk_scratch_floats)
+  int* wp_adv;              // (1,) the furthest carried window row over K (carry_span > 0);
+                            // the caller zeroes it, the rollout raises it with atomicMax
   // sizes and modes
   int K, T, W, n_obs;
   int k_blk;                // samples per noise-stream block (generated ε)
@@ -76,6 +94,8 @@ struct DmmArgs {
   int block_offset;         // generated ε: sample k draws from block block_offset + k / k_blk
   int s_only;               // dmm_mppi_tick in eps_mode 2: the rollout (S) only
   int scratch_floats;       // floats at scratch
+  int carry_span;           // waypoint_carry="rollout": the per-step search span over the
+                            // W carry-window rows; 0: one window for the tick
   float dt, n_exploit, k_offset, inv_temp;
   float obs_radius;         // effective robot radius (circle mode)
   float soft_dist, soft_w;
@@ -127,6 +147,27 @@ __device__ __forceinline__ float dmm_tracking(int W, int lane, float x, float y,
   return w0 * ex * ex + w1 * ey * ey + w2 * eyaw * eyaw;
 }
 
+// dmm_tracking with the carried window start `idx` (waypoint_carry=
+// "rollout"): the masked search from idx; with `advance` idx moves to the
+// row found. No row found (a NaN state): idx stays, and the cost takes the
+// reference (0, 0, 0) and, ISO, d = 1e30, as the Pallas kernel does.
+template <int G, bool ISO>
+__device__ __forceinline__ float dmm_tracking_carried(int W, int span, int* idx, bool advance,
+                                                      int lane, float x, float y, float yaw,
+                                                      const float2* sxy, const float* syaw,
+                                                      float w0, float w1, float w2) {
+  float dmin;
+  const int row = dmm_carried_row<G>(W, span, *idx, lane, x, y, sxy, &dmin);
+  const bool found = row >= 0;
+  if (found && advance) *idx = row;
+  const float eyaw = yaw - (found ? syaw[row] : 0.0f);
+  if (ISO) return w0 * dmin + w2 * eyaw * eyaw;
+  const float2 r = found ? sxy[row] : make_float2(0.0f, 0.0f);
+  const float ex = x - r.x;
+  const float ey = y - r.y;
+  return w0 * ex * ex + w1 * ey * ey + w2 * eyaw * eyaw;
+}
+
 // Obstacle cost at rollout time t_f (drift applied when `drift`). `Args` is
 // any argument block with n_obs, obs_mode, obs_radius, soft_dist and soft_w
 // (DmmArgs, DmmGenericArgs).
@@ -159,11 +200,12 @@ __device__ __forceinline__ float dmm_obstacle_cost(float xc, float yc, const flo
 // for the shuffles and stores nothing). `su`, `sa`, `sxy`, `syaw`, `sobs` are
 // the block's shared copies of u, a, the window's (x, y) and yaw rows and the
 // obstacles. GEN draws ε from the hash stream and, when p.eps_mode == 1,
-// stores it to p.eps.
-template <int G, bool ISO, bool LAST, bool GEN>
-__device__ float dmm_rollout_sample(const DmmArgs& p, int k, int lane, bool active,
-                                    const float* su, const float* sa, const float2* sxy,
-                                    const float* syaw, const float* sobs) {
+// stores it to p.eps. CARRY carries the window start (p.carry_span > 0) and
+// leaves the final one at `carried`.
+template <int G, bool ISO, bool LAST, bool GEN, bool CARRY>
+__device__ __forceinline__ float dmm_rollout_sample(
+    const DmmArgs& p, int k, int lane, bool active, const float* su, const float* sa,
+    const float2* sxy, const float* syaw, const float* sobs, int* carried) {
   const int T = p.T, K = p.K;
   const float dt = p.dt;
   const float umin0 = p.u_min[0], umax0 = p.u_max[0];
@@ -188,6 +230,7 @@ __device__ float dmm_rollout_sample(const DmmArgs& p, int k, int lane, bool acti
 
   float x = p.x0[0], y = p.x0[1], yaw = p.x0[2];
   float S = 0.0f;
+  int idx = 0;  // CARRY: the carried window start, a row of the carry window
   float g0 = 0.0f, g1 = 0.0f;  // GEN: this lane's ε of step t0 + lane
   for (int t = 0; t < T; ++t) {
     float e0, e1;
@@ -221,15 +264,23 @@ __device__ float dmm_rollout_sample(const DmmArgs& p, int k, int lane, bool acti
     y = y + v0 * s * dt;
     yaw = yaw + v1 * dt;
 
-    float cost = dmm_tracking<G, ISO>(p.W, lane, x, y, yaw, sxy, syaw, sw0, sw1, sw2);
+    float cost = CARRY ? dmm_tracking_carried<G, ISO>(p.W, p.carry_span, &idx, true, lane, x, y,
+                                                      yaw, sxy, syaw, sw0, sw1, sw2)
+                       : dmm_tracking<G, ISO>(p.W, lane, x, y, yaw, sxy, syaw, sw0, sw1, sw2);
     cost = cost + sa[2 * t] * v0 + sa[2 * t + 1] * v1;
     if (has_cw) cost = cost + rc0 * v0 * v0 + rc1 * v1 * v1;
     if (p.n_obs > 0)
       cost = cost + dmm_obstacle_cost(x, y, sobs, p, p.drift != 0, static_cast<float>(t) * dt);
     S = LAST ? cost : S + cost;
   }
-  S = S + dmm_tracking<G, ISO>(p.W, lane, x, y, yaw, sxy, syaw, p.term_w[0], p.term_w[1],
-                               p.term_w[2]);
+  if (CARRY) {
+    S = S + dmm_tracking_carried<G, ISO>(p.W, p.carry_span, &idx, false, lane, x, y, yaw, sxy,
+                                         syaw, p.term_w[0], p.term_w[1], p.term_w[2]);
+    *carried = idx;
+  } else {
+    S = S + dmm_tracking<G, ISO>(p.W, lane, x, y, yaw, sxy, syaw, p.term_w[0], p.term_w[1],
+                                 p.term_w[2]);
+  }
   if (p.n_obs > 0) S = S + dmm_obstacle_cost(x, y, sobs, p, false, 0.0f);
   return S;
 }

@@ -6,7 +6,9 @@
 //   dmm_generic_tick          <- dnn_mppi_mpc_tpu/ops/pallas/generic_tick.py:442
 //                                generic_mppi_tick (ε injected or drawn from the
 //                                hash stream, rollout, softmax, Σ w·ε, and the
-//                                fused epilogue when fuse_epilogue is set)
+//                                fused epilogue when fuse_epilogue is set; with
+//                                carry_span > 0 its rollout_carry mode, the
+//                                furthest carried window row to wp_adv)
 //   dmm_generic_rollout_costs <- dnn_mppi_mpc_tpu/ops/pallas/generic_tick.py:665
 //                                generic_rollout_costs (ε in, S out, with the
 //                                shard's k_offset: the rollout_fn of the
@@ -102,7 +104,7 @@ size_t generic_smem_bytes(const DmmGenericArgs& p) {
   return static_cast<size_t>(2 * F::NU * p.T + p.n_track * p.W + 5 * p.n_obs) * sizeof(float);
 }
 
-template <int G, class F, bool LAST, bool GEN>
+template <int G, class F, bool LAST, bool GEN, bool CARRY>
 __global__ void __launch_bounds__(kRolloutThreads) generic_rollout_kernel(DmmGenericArgs p) {
   constexpr int NU = F::NU;
   extern __shared__ float smem[];
@@ -126,16 +128,22 @@ __global__ void __launch_bounds__(kRolloutThreads) generic_rollout_kernel(DmmGen
   const int lane = threadIdx.x & (G - 1);
   const int k = static_cast<int>((static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / G);
   const bool active = k < p.K;
-  const float S = dmm_generic_sample<G, F, LAST, GEN>(p, active ? k : p.K - 1, lane, active, su,
-                                                      sa, sxy, srest, sobs);
+  int carried = 0;
+  const float S = dmm_generic_sample<G, F, LAST, GEN, CARRY>(p, active ? k : p.K - 1, lane,
+                                                             active, su, sa, sxy, srest, sobs,
+                                                             &carried);
   if (active && lane == 0) p.S[k] = S;
+  if (CARRY) dmm_carry_max(carried, p.wp_adv);
 }
 
 template <int G, class F, bool LAST, bool GEN>
 void launch_rollout_g(const DmmGenericArgs& p, size_t smem, cudaStream_t s) {
   const long long threads = static_cast<long long>(p.K) * G;
   const unsigned blocks = static_cast<unsigned>((threads + kRolloutThreads - 1) / kRolloutThreads);
-  generic_rollout_kernel<G, F, LAST, GEN><<<blocks, kRolloutThreads, smem, s>>>(p);
+  if (p.carry_span > 0)
+    generic_rollout_kernel<G, F, LAST, GEN, true><<<blocks, kRolloutThreads, smem, s>>>(p);
+  else
+    generic_rollout_kernel<G, F, LAST, GEN, false><<<blocks, kRolloutThreads, smem, s>>>(p);
 }
 
 // The rollout at the rule's G for the launch's samples and ε route.
@@ -160,7 +168,8 @@ cudaError_t launch_generic_rollout(const DmmGenericArgs& p, cudaStream_t s) {
   const size_t smem = generic_smem_bytes<F>(p);
   if (p.K <= 0 || p.K > (1 << 26) || p.T <= 0 || p.W <= 0 || p.n_track < 2 ||
       p.n_track > F::NX || p.n_obs < 0 || p.eps_mode < 0 || p.eps_mode > 2 ||
-      smem > kMaxSmemBytes)
+      smem > kMaxSmemBytes || p.carry_span < 0 || p.carry_span > p.W ||
+      (p.carry_span > 0 && p.wp_adv == nullptr))
     return cudaErrorInvalidValue;
   if (p.last_only) launch_rollout_last<F, true>(p, smem, s);
   else launch_rollout_last<F, false>(p, smem, s);
@@ -232,7 +241,7 @@ int dmm_generic_args_size() { return static_cast<int>(sizeof(DmmGenericArgs)); }
 // shard at global index k + k_offset.
 int dmm_generic_rollout_costs(const DmmGenericArgs* args, void* stream) {
   const DmmGenericArgs p = *args;
-  if (p.eps_mode != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (p.eps_mode != 0 || p.carry_span != 0) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(by_model<RolloutOnly>(p, static_cast<cudaStream_t>(stream)));
 }
 

@@ -10,7 +10,11 @@
 // first n_track state dims (dim 2 wrapped to [0, 2π) as x − 2π·floor(x·1/2π)
 // with wrap_yaw), circle (×1e7, 1 if any obstacle is hit) or soft obstacles
 // drifting by t·dt at stage t (terminal cost at the initial positions), SUM
-// or LAST accumulation.
+// or LAST accumulation. With waypoint_carry="rollout" (carry_span > 0,
+// generic_tick.py:226-244 and 334-356) each sample carries its window start
+// through the rollout by the diff-drive rollout's rule (dmm_carried_row;
+// no row found: the reference (0, ..., 0)), and the furthest final start
+// over K goes to wp_adv.
 //
 // Tile steps are functors: a struct with static NX, NU and a step on
 // register arrays, its constants read from DmmGenericArgs::c in the order of
@@ -72,6 +76,8 @@ struct DmmGenericArgs {
   float* u_shift;           // (T, NU)
   float* finite;            // (1,) 1.0 when the update was applied
   float* scratch;           // the chunked reductions' partials (dmm_generic_scratch_floats)
+  int* wp_adv;              // (1,) the furthest carried window row over K (carry_span > 0);
+                            // the caller zeroes it
   // sizes and modes
   int model;                // 0 unicycle, 1 kinematic bicycle, 2 four-wheel torque,
                             // 3 dynamic bicycle (tile.FAMILIES)
@@ -83,6 +89,8 @@ struct DmmGenericArgs {
   int wrap_yaw;             // wrap state dim 2 before differencing
   int fuse_epilogue;
   int scratch_floats;       // floats at scratch
+  int carry_span;           // waypoint_carry="rollout": the per-step search span over the
+                            // W carry-window rows; 0: one window for the tick
   float dt;                 // the config's dt (obstacle drift)
   float n_exploit, k_offset, inv_temp;
   float obs_radius;         // effective robot radius (circle mode)
@@ -214,6 +222,35 @@ __device__ __forceinline__ float dmm_generic_tracking(const float* x, int W, int
   return c;
 }
 
+// dmm_generic_tracking from the carried window start `idx`
+// (waypoint_carry="rollout"): the masked search from idx (dmm_carried_row),
+// with `advance` idx moving to the row found; with no row found (a NaN
+// state) idx stays and every reference column reads 0, as in the Pallas
+// kernel.
+template <int G, int NX>
+__device__ __forceinline__ float dmm_generic_tracking_carried(
+    const float* x, int W, int span, int* idx, bool advance, int lane, const float2* sxy,
+    const float* srest, int n_track, const float* w, bool wrap) {
+  float dmin;
+  const int row = dmm_carried_row<G>(W, span, *idx, lane, x[0], x[1], sxy, &dmin);
+  const bool found = row >= 0;
+  if (found && advance) *idx = row;
+  const float2 r = found ? sxy[row] : make_float2(0.0f, 0.0f);
+  const float* rest = srest + (found ? row : 0) * (n_track - 2);
+  float c = 0.0f;
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+    if (i < n_track) {
+      float xi = x[i];
+      if (i == 2 && wrap) xi = xi - kGenericTwoPi * floorf(xi * kGenericInvTwoPi);
+      const float ref = i == 0 ? r.x : i == 1 ? r.y : (found ? rest[i - 2] : 0.0f);
+      const float e = xi - ref;
+      c = c + w[i] * e * e;
+    }
+  }
+  return c;
+}
+
 // The NU floats of an injected ε row (T, K, NU) at `at`.
 template <int NU>
 __device__ __forceinline__ void dmm_generic_eps_row(const float* at, float* e) {
@@ -239,11 +276,12 @@ __device__ __forceinline__ void dmm_generic_eps_row(const float* at, float* e) {
 // are the block's shared copies of u, a (T, NU each), the window's (x, y)
 // rows and other columns and the obstacles. GEN draws ε from the hash stream
 // (one block of K samples, seed p.seed[0]) and, when p.eps_mode == 1, stores
-// it to p.eps.
-template <int G, class F, bool LAST, bool GEN>
-__device__ float dmm_generic_sample(const DmmGenericArgs& p, int k, int lane, bool active,
-                                    const float* su, const float* sa, const float2* sxy,
-                                    const float* srest, const float* sobs) {
+// it to p.eps. CARRY carries the window start (p.carry_span > 0) and leaves
+// the final one at `carried`.
+template <int G, class F, bool LAST, bool GEN, bool CARRY>
+__device__ __forceinline__ float dmm_generic_sample(
+    const DmmGenericArgs& p, int k, int lane, bool active, const float* su, const float* sa,
+    const float2* sxy, const float* srest, const float* sobs, int* carried) {
   constexpr int NX = F::NX, NU = F::NU;
   const F f(p.c);
   const int T = p.T, K = p.K;
@@ -273,6 +311,7 @@ __device__ float dmm_generic_sample(const DmmGenericArgs& p, int k, int lane, bo
 #pragma unroll
   for (int i = 0; i < NX; ++i) x[i] = p.x0[i];
   float S = 0.0f;
+  int idx = 0;   // CARRY: the carried window start, a row of the carry window
   float g[NU];   // GEN: this lane's ε of step t0 + lane
   float en[NU];  // injected: the next step's row, loaded a step ahead, off the state's chain
 #pragma unroll
@@ -311,13 +350,22 @@ __device__ float dmm_generic_sample(const DmmGenericArgs& p, int k, int lane, bo
       energy = j == 0 ? term : energy + term;
     }
     f.step(x, v);
-    float cost =
-        dmm_generic_tracking<G, NX>(x, p.W, lane, sxy, srest, p.n_track, sw, wrap) + energy;
+    const float track =
+        CARRY ? dmm_generic_tracking_carried<G, NX>(x, p.W, p.carry_span, &idx, true, lane, sxy,
+                                                    srest, p.n_track, sw, wrap)
+              : dmm_generic_tracking<G, NX>(x, p.W, lane, sxy, srest, p.n_track, sw, wrap);
+    float cost = track + energy;
     if (p.n_obs > 0)
       cost = cost + dmm_obstacle_cost(x[0], x[1], sobs, p, p.drift != 0, static_cast<float>(t) * p.dt);
     S = LAST ? cost : S + cost;
   }
-  S = S + dmm_generic_tracking<G, NX>(x, p.W, lane, sxy, srest, p.n_track, tw, wrap);
+  if (CARRY) {
+    S = S + dmm_generic_tracking_carried<G, NX>(x, p.W, p.carry_span, &idx, false, lane, sxy,
+                                                srest, p.n_track, tw, wrap);
+    *carried = idx;
+  } else {
+    S = S + dmm_generic_tracking<G, NX>(x, p.W, lane, sxy, srest, p.n_track, tw, wrap);
+  }
   if (p.n_obs > 0) S = S + dmm_obstacle_cost(x[0], x[1], sobs, p, false, 0.0f);
   return S;
 }

@@ -6,7 +6,9 @@
 //   dmm_mppi_tick      <- dnn_mppi_mpc_tpu/ops/pallas/mppi_tick.py:733
 //                         diffdrive_mppi_tick (eps_mode 0, 1 or 2 with
 //                         k_blk == K: ε injected, drawn and stored, or drawn
-//                         and drawn again in Σ w·ε)
+//                         and drawn again in Σ w·ε; with carry_span > 0 its
+//                         rollout_carry mode, the furthest carried window
+//                         row to wp_adv)
 //                      <- dnn_mppi_mpc_tpu/ops/pallas/mppi_tick_blocked.py:317
 //                         diffdrive_mppi_tick_blocked (eps_mode 2, K-blocked
 //                         noise stream from block block_offset on, no
@@ -90,8 +92,9 @@ DmmReduceArgs reduce_args(const DmmArgs& p) {
 }
 
 // Block (x, b) rolls out the samples of member b (dmm_member; one controller
-// is member 0), G lanes each.
-template <int G, bool ISO, bool LAST, bool GEN>
+// is member 0), G lanes each. CARRY (one controller only): each sample
+// carries its window start, and every warp raises wp_adv to its furthest.
+template <int G, bool ISO, bool LAST, bool GEN, bool CARRY>
 __global__ void __launch_bounds__(kRolloutThreads) rollout_kernel(DmmArgs p0) {
   const DmmArgs p = dmm_member(p0, blockIdx.y);
   extern __shared__ float smem[];
@@ -113,19 +116,29 @@ __global__ void __launch_bounds__(kRolloutThreads) rollout_kernel(DmmArgs p0) {
   const int lane = threadIdx.x & (G - 1);
   const int k = static_cast<int>((static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / G);
   const bool active = k < p.K;
-  const float S = dmm_rollout_sample<G, ISO, LAST, GEN>(p, active ? k : p.K - 1, lane, active,
-                                                        su, sa, sxy, syaw, sobs);
+  int carried = 0;
+  const float S = dmm_rollout_sample<G, ISO, LAST, GEN, CARRY>(
+      p, active ? k : p.K - 1, lane, active, su, sa, sxy, syaw, sobs, &carried);
   if (active && lane == 0) p.S[k] = S;
+  if (CARRY) dmm_carry_max(carried, p.wp_adv);
+}
+
+template <int G, bool ISO, bool LAST, bool CARRY>
+void launch_rollout_carry(const DmmArgs& p, int B, size_t smem, cudaStream_t s) {
+  const long long threads = static_cast<long long>(p.K) * G;
+  const dim3 grid(static_cast<unsigned>((threads + kRolloutThreads - 1) / kRolloutThreads), B);
+  if (p.eps_mode == 0)
+    rollout_kernel<G, ISO, LAST, false, CARRY><<<grid, kRolloutThreads, smem, s>>>(p);
+  else
+    rollout_kernel<G, ISO, LAST, true, CARRY><<<grid, kRolloutThreads, smem, s>>>(p);
 }
 
 template <int G, bool ISO, bool LAST>
 void launch_rollout_g(const DmmArgs& p, int B, size_t smem, cudaStream_t s) {
-  const long long threads = static_cast<long long>(p.K) * G;
-  const dim3 grid(static_cast<unsigned>((threads + kRolloutThreads - 1) / kRolloutThreads), B);
-  if (p.eps_mode == 0)
-    rollout_kernel<G, ISO, LAST, false><<<grid, kRolloutThreads, smem, s>>>(p);
+  if (p.carry_span > 0)
+    launch_rollout_carry<G, ISO, LAST, true>(p, B, smem, s);
   else
-    rollout_kernel<G, ISO, LAST, true><<<grid, kRolloutThreads, smem, s>>>(p);
+    launch_rollout_carry<G, ISO, LAST, false>(p, B, smem, s);
 }
 
 template <bool ISO, bool LAST>
@@ -143,6 +156,11 @@ cudaError_t launch_rollout(const DmmArgs& p, int B, cudaStream_t s) {
       B > 65535 || smem > kMaxSmemBytes)
     return cudaErrorInvalidValue;
   if (p.eps_mode != 0 && (p.k_blk <= 0 || p.K % p.k_blk != 0)) return cudaErrorInvalidValue;
+  // the carry: one controller, one noise-stream block, a span within the rows
+  if (p.carry_span < 0 || p.carry_span > p.W ||
+      (p.carry_span > 0 && (B != 1 || p.wp_adv == nullptr || p.block_offset != 0 ||
+                            (p.eps_mode != 0 && p.k_blk != p.K))))
+    return cudaErrorInvalidValue;
   if (p.iso_xy) {
     if (p.last_only) launch_rollout_iso_last<true, true>(p, B, smem, s);
     else launch_rollout_iso_last<true, false>(p, B, smem, s);
@@ -161,7 +179,8 @@ DmmEpilogueArgs epilogue_args(const DmmArgs& p) {
 
 // The fused or K-blocked tick.
 cudaError_t mppi_tick(const DmmArgs& p, cudaStream_t s) {
-  if (p.T > 1024 || (p.s_only && p.eps_mode != 2) || p.eps_mode < 0 || p.eps_mode > 2)
+  if (p.T > 1024 || (p.s_only && p.eps_mode != 2) || p.eps_mode < 0 || p.eps_mode > 2 ||
+      (p.s_only && p.carry_span != 0))
     return cudaErrorInvalidValue;
   if (!p.s_only && !chunked_reductions_take(reduce_args(p), p.T, epilogue_args(p)))
     return cudaErrorInvalidValue;
@@ -182,7 +201,7 @@ int dmm_fleet_args_size() { return static_cast<int>(sizeof(DmmFleetArgs)); }
 // Split rollout: S only (ε injected, eps_mode 0).
 int dmm_rollout_costs(const DmmArgs* args, void* stream) {
   const DmmArgs p = *args;
-  if (p.eps_mode != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (p.eps_mode != 0 || p.carry_span != 0) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_rollout(p, 1, static_cast<cudaStream_t>(stream)));
 }
 
@@ -223,7 +242,7 @@ int dmm_fleet_mppi_tick(const DmmFleetArgs* args, void* stream) {
   const int B = args->B;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || B > 65535 || p.eps_mode != 2 || p.k_blk != p.K || p.block_offset != 0 ||
-      p.fuse_epilogue)
+      p.fuse_epilogue || p.carry_span != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = launch_rollout(p, B, s);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -100,6 +100,42 @@ def _tracking_plain(x, y, yaw, window, w, iso_xy: bool) -> torch.Tensor:
     return w[0] * ex * ex + w[1] * ey * ey + w[2] * eyaw * eyaw
 
 
+def carried_rows_plain(x, y, window, idx, span: int):
+    """The kernels' carried search (``dmm_carried_row``, waypoint_carry=
+    "rollout") for each sample: over the rows idx ≤ i < idx + span of the
+    (W, ≥2) window, the first row whose d is strictly below 1e30 and below
+    every earlier row's (a NaN d never wins). Returns ``(row, d, found)``:
+    row is the sample's idx and d is 1e30 where no row was found. Written
+    without a host sync."""
+    W = window.shape[0]
+    dx = x[:, None] - window[:, 0]
+    dy = y[:, None] - window[:, 1]
+    d = dx * dx + dy * dy  # (K, W)
+    i = torch.arange(W, device=d.device)
+    valid = (i >= idx[:, None]) & (i < idx[:, None] + span) & (d < 1.0e30)
+    dd = torch.where(valid, d, torch.full_like(d, float("inf")))
+    j = torch.argmin(dd, dim=1)  # the first of the least: argmin's tie rule
+    dj = dd.gather(1, j[:, None])[:, 0]
+    found = dj < 1.0e30
+    return (torch.where(found, j, idx), torch.where(found, dj, torch.full_like(dj, 1.0e30)),
+            found)
+
+
+def _tracking_carried_plain(x, y, yaw, window, w, iso_xy: bool, idx, span: int):
+    """The plain twin of ``dmm_tracking_carried``: the tracking cost from the
+    carried starts idx (K,) and the row found (idx where none was: the
+    reference then reads (0, 0, 0) and, iso_xy, d = 1e30)."""
+    row, dmin, found = carried_rows_plain(x, y, window, idx, span)
+    ref = torch.where(found[:, None], window.index_select(0, row)[:, :3],
+                      torch.zeros((), dtype=window.dtype, device=window.device))
+    eyaw = yaw - ref[:, 2]
+    if iso_xy:
+        return w[0] * dmin + w[2] * eyaw * eyaw, row
+    ex = x - ref[:, 0]
+    ey = y - ref[:, 1]
+    return w[0] * ex * ex + w[1] * ey * ey + w[2] * eyaw * eyaw, row
+
+
 def _obstacle_plain(x, y, obs, obs_mode: str, obs_radius: float, soft_dist: float,
                     soft_w: float, t_f: Optional[float]) -> torch.Tensor:
     """Obstacle cost at rollout time ``t_f`` (None: initial positions) for
@@ -145,9 +181,13 @@ def rollout_body_plain(
     control_w: Optional[torch.Tensor] = None,
     iso_xy: bool = False,
     last_only: bool = False,
-) -> torch.Tensor:
+    carry_W: int = 0,
+):
     """Per-sample costs S (K,) — the plain twin of ``dmm_rollout_sample``
-    in csrc/diffdrive_rollout.cuh (same operations in the same order)."""
+    in csrc/diffdrive_rollout.cuh (same operations in the same order). With
+    ``carry_W`` > 0 (waypoint_carry="rollout") each sample carries its window
+    start from row 0 of ``window`` and searches ``carry_W`` rows from it;
+    returns ``(S, final starts (K,) int64)``."""
     if obs_mode not in ("circle", "soft"):
         raise ValueError(f"obs_mode must be 'circle' or 'soft', got {obs_mode!r}")
     K, T, _ = eps.shape
@@ -158,6 +198,7 @@ def rollout_body_plain(
     y = x0[1].expand(K)
     yaw = x0[2].expand(K)
     S = torch.zeros(K, dtype=torch.float32, device=eps.device)
+    idx = torch.zeros(K, dtype=torch.int64, device=eps.device)
     n_obs = 0 if obstacles is None else obstacles.shape[0]
     for t in range(T):
         e0, e1 = eps[:, t, 0], eps[:, t, 1]
@@ -167,7 +208,10 @@ def rollout_body_plain(
         x = x + v0 * c * dt
         y = y + v0 * s * dt
         yaw = yaw + v1 * dt
-        cost = _tracking_plain(x, y, yaw, window, stage_w, iso_xy)
+        if carry_W:
+            cost, idx = _tracking_carried_plain(x, y, yaw, window, stage_w, iso_xy, idx, carry_W)
+        else:
+            cost = _tracking_plain(x, y, yaw, window, stage_w, iso_xy)
         cost = cost + a[t, 0] * v0 + a[t, 1] * v1
         if control_w is not None:
             cost = cost + control_w[0] * v0 * v0 + control_w[1] * v1 * v1
@@ -177,10 +221,13 @@ def rollout_body_plain(
                 x, y, obstacles, obs_mode, obs_radius, soft_dist, soft_w, t_f
             )
         S = cost if last_only else S + cost
-    S = S + _tracking_plain(x, y, yaw, window, term_w, iso_xy)
+    if carry_W:
+        S = S + _tracking_carried_plain(x, y, yaw, window, term_w, iso_xy, idx, carry_W)[0]
+    else:
+        S = S + _tracking_plain(x, y, yaw, window, term_w, iso_xy)
     if n_obs:
         S = S + _obstacle_plain(x, y, obstacles, obs_mode, obs_radius, soft_dist, soft_w, None)
-    return S
+    return (S, idx) if carry_W else S
 
 
 def softmax_plain(S: torch.Tensor, inv_temperature: float):
@@ -202,6 +249,7 @@ __all__ = [
     "TWO_PI",
     "check",
     "check_seed",
+    "carried_rows_plain",
     "check_staging",
     "f32",
     "on_cuda",

@@ -15,11 +15,18 @@ epilogue, four launches in all) through :func:`launch_generic_tick` and
 same computation in plain PyTorch in the kernel's order of operations.
 
 The kernel compiles in the four built-in tile-step families of
-``models/tile.py``. A lifted step (``lift_dynamics``, family None), a
-time-varying step (``step_takes_t``) and the per-rollout waypoint carry have
-no kernel: on CUDA tensors they raise ``ValueError`` — write a tile step of a
-built-in family for the card. The plain version runs lifted and
-time-varying steps on CPU tensors.
+``models/tile.py``. A lifted step (``lift_dynamics``, family None) and a
+time-varying step (``step_takes_t``) have no kernel: on CUDA tensors they
+raise ``ValueError`` — write a tile step of a built-in family for the card.
+The plain version runs lifted and time-varying steps on CPU tensors.
+
+``rollout_carry`` (waypoint_carry="rollout", JAX ``generic_tick.py:226,
+334-356, 554-644``) runs in the tick of every family: ``window`` is the
+carry window from the tick anchor, each sample carries its window start
+from row 0 and searches ``carry_W`` rows from it (the diff-drive tick's
+rule, ``csrc/window_search.cuh dmm_carried_row``), and the tick also returns
+the furthest final start over K. The split rollout has no carry, as in
+JAX.
 
 Noise: ε is injected (K, T, nu), or drawn from the hash stream of
 ``ops/cuda/mathx.py`` as one block of K samples (pair p of sample k at step
@@ -45,7 +52,13 @@ from .common import (
     weighted_noise_plain,
 )
 from .mathx import hash_noise
-from .mppi_tick import _OBS_MODES, effective_robot_radius, fused_epilogue_plain, pack_obstacles
+from .mppi_tick import (
+    _OBS_MODES,
+    _check_carry,
+    effective_robot_radius,
+    fused_epilogue_plain,
+    pack_obstacles,
+)
 
 _INV_TWO_PI = f32(1.0 / (2.0 * np.pi))
 
@@ -74,12 +87,9 @@ def _check_args(step_tile, nx: int, nu: int, n_track: int, window: torch.Tensor,
         )
 
 
-def kernel_model(step_tile, step_takes_t: bool, rollout_carry: bool = False) -> int:
+def kernel_model(step_tile, step_takes_t: bool) -> int:
     """The kernel's ``model`` field for the step, or ``ValueError`` for what
     the kernel cannot run."""
-    if rollout_carry:
-        raise ValueError("rollout_carry (waypoint_carry='rollout') is not ported: no kernel "
-                         "implements the per-rollout waypoint carry")
     if step_takes_t:
         raise ValueError("step_takes_t (a time-varying tile step) has no kernel: it runs in "
                          "the plain version on CPU tensors")
@@ -116,6 +126,23 @@ def _tracking_plain(xs, window, w, wrap_yaw: bool) -> torch.Tensor:
     return c
 
 
+def _tracking_carried_plain(xs, window, w, wrap_yaw: bool, idx, span: int):
+    """The plain twin of the kernel's carried tracking cost: the rows from
+    the carried starts idx (``common.carried_rows_plain``; (0, ..., 0) where
+    none was found) and the row found, which becomes the next idx."""
+    row, _, found = common.carried_rows_plain(xs[0], xs[1], window, idx, span)
+    ref = torch.where(found[:, None], window.index_select(0, row),
+                      torch.zeros((), dtype=window.dtype, device=window.device))
+    c = torch.zeros_like(xs[0])
+    for i in range(w.shape[0]):
+        xi = xs[i]
+        if wrap_yaw and i == 2:
+            xi = xi - TWO_PI * torch.floor(xi * _INV_TWO_PI)
+        e = xi - ref[:, i]
+        c = c + w[i] * e * e
+    return c, row
+
+
 def generic_rollout_body_plain(
     eps: torch.Tensor,  # (K, T, nu)
     u: torch.Tensor,
@@ -140,14 +167,18 @@ def generic_rollout_body_plain(
     wrap_yaw: bool = False,
     last_only: bool = False,
     step_takes_t: bool = False,
-) -> torch.Tensor:
+    carry_W: int = 0,
+):
     """Per-sample costs S (K,) — the plain twin of ``dmm_generic_sample`` in
-    csrc/generic_rollout.cuh (same operations in the same order)."""
+    csrc/generic_rollout.cuh (same operations in the same order). With
+    ``carry_W`` > 0 (waypoint_carry="rollout") returns ``(S, final carried
+    starts (K,) int64)``."""
     K, T, nu = eps.shape
     dt, obs_radius, soft_dist, soft_w = f32(dt), f32(obs_radius), f32(soft_dist), f32(soft_w)
     exploit = torch.arange(K, dtype=torch.float32, device=eps.device) + f32(k_offset) < f32(n_exploit)
     xs = tuple(x0[i].expand(K) for i in range(x0.shape[0]))
     S = torch.zeros(K, dtype=torch.float32, device=eps.device)
+    idx = torch.zeros(K, dtype=torch.int64, device=eps.device)
     n_obs = 0 if obstacles is None else obstacles.shape[0]
     for t in range(T):
         vs, energy = [], None
@@ -160,23 +191,30 @@ def generic_rollout_body_plain(
         xs = tuple(step_tile(xs, tuple(vs), t) if step_takes_t else step_tile(xs, tuple(vs)))
         if len(xs) != x0.shape[0]:
             raise ValueError(f"the tile step returned {len(xs)} state dims, expected {x0.shape[0]}")
-        cost = _tracking_plain(xs, window, stage_w, wrap_yaw) + energy
+        if carry_W:
+            track, idx = _tracking_carried_plain(xs, window, stage_w, wrap_yaw, idx, carry_W)
+        else:
+            track = _tracking_plain(xs, window, stage_w, wrap_yaw)
+        cost = track + energy
         if n_obs:
             t_f = float(np.float32(t) * np.float32(dt)) if drift else None
             cost = cost + _obstacle_plain(xs[0], xs[1], obstacles, obs_mode, obs_radius,
                                           soft_dist, soft_w, t_f)
         S = cost if last_only else S + cost
-    S = S + _tracking_plain(xs, window, term_w, wrap_yaw)
+    if carry_W:
+        S = S + _tracking_carried_plain(xs, window, term_w, wrap_yaw, idx, carry_W)[0]
+    else:
+        S = S + _tracking_plain(xs, window, term_w, wrap_yaw)
     if n_obs:
         S = S + _obstacle_plain(xs[0], xs[1], obstacles, obs_mode, obs_radius, soft_dist,
                                 soft_w, None)
-    return S
+    return (S, idx) if carry_W else S
 
 
 def _plain_rollout(eps, u, a, x0, window, stage_w, term_w, u_min, u_max, dt, n_exploit,
                    obstacles, robot_radius, safety_margin_rate, obstacle_velocities,
                    soft_safety_distance, soft_weight, k_offset, *, step_tile, n_track, W,
-                   wrap_yaw, last_only, collision, step_takes_t):
+                   wrap_yaw, last_only, collision, step_takes_t, carry_W=0):
     obs, _ = pack_obstacles(obstacles, obstacle_velocities)
     return generic_rollout_body_plain(
         eps, u, a, x0, window[:W, :n_track], stage_w, term_w, u_min, u_max,
@@ -185,6 +223,7 @@ def _plain_rollout(eps, u, a, x0, window, stage_w, term_w, u_min, u_max, dt, n_e
         obs_radius=effective_robot_radius(robot_radius, safety_margin_rate),
         drift=obstacle_velocities is not None, soft_dist=soft_safety_distance,
         soft_w=soft_weight, wrap_yaw=wrap_yaw, last_only=last_only, step_takes_t=step_takes_t,
+        carry_W=carry_W,
     )
 
 
@@ -363,13 +402,12 @@ def generic_mppi_tick_plain(
     k_offset=0.0, *, step_tile, nx: int, nu: int, n_track: int, K: int, T: int, W: int,
     wrap_yaw: bool = False, last_only: bool = False, emit_eps: bool = False,
     collision: str = "circle", fuse_epilogue: bool = False, step_takes_t: bool = False,
-    rollout_carry: bool = False,
+    rollout_carry: bool = False, carry_W: int = 0,
 ):
     """Plain PyTorch version of :func:`generic_mppi_tick`."""
     generic_mppi_tick_plain.calls += 1
     _check_args(step_tile, nx, nu, n_track, window, collision)
-    if rollout_carry:
-        kernel_model(step_tile, False, True)  # raises: not ported
+    _check_carry(rollout_carry, carry_W, W)
     if eps is None:
         eps = hash_noise(seed, chol_sigma, K, T, K)
     S = _plain_rollout(
@@ -377,7 +415,10 @@ def generic_mppi_tick_plain(
         robot_radius, safety_margin_rate, obstacle_velocities, soft_safety_distance,
         soft_weight, k_offset, step_tile=step_tile, n_track=n_track, W=W, wrap_yaw=wrap_yaw,
         last_only=last_only, collision=collision, step_takes_t=step_takes_t,
+        carry_W=carry_W if rollout_carry else 0,
     )
+    if rollout_carry:
+        S, carried = S
     _, _, w = softmax_plain(S, inv_temperature)
     w_eps = weighted_noise_plain(w, eps)
     out = [S, w, w_eps]
@@ -385,6 +426,8 @@ def generic_mppi_tick_plain(
         out.append(fused_epilogue_plain(w_eps, filter_t, u))
     if emit_eps:
         out.append(eps)
+    if rollout_carry:
+        out.append(carried.max().to(torch.int32))
     return tuple(out)
 
 
@@ -395,15 +438,17 @@ def launch_generic_tick(
     *, seed, u, a, chol_sigma, x0, window, stage_w, term_w, u_min, u_max, dt, n_exploit,
     inv_temperature, obstacles, robot_radius, safety_margin_rate, obstacle_velocities,
     soft_safety_distance, soft_weight, filter_t, k_offset, eps, emit_eps, step_tile, nx, nu,
-    n_track, K, T, W, wrap_yaw, last_only, collision, step_takes_t=False, rollout_carry=False,
+    n_track, K, T, W, wrap_yaw, last_only, collision, step_takes_t=False, carry_W=0,
 ) -> dict:
     """Check the inputs, allocate the outputs and scratch and launch
     ``dmm_generic_tick``: ε injected (``eps``), or drawn and stored
     (``emit_eps``), or drawn and drawn again in Σw·ε; the epilogue when
-    ``filter_t`` is given. Returns a dict of the output tensors (``eps`` is
-    the (T, K, nu) buffer, None when ε is drawn again)."""
+    ``filter_t`` is given; with ``carry_W`` > 0 the rollout carry
+    (``wp_adv``, the (1,) int32 furthest carried row, zeroed here). Returns
+    a dict of the output tensors (``eps`` is the (T, K, nu) buffer, None
+    when ε is drawn again)."""
     _check_args(step_tile, nx, nu, n_track, window, collision)
-    model = kernel_model(step_tile, step_takes_t, rollout_carry)
+    model = kernel_model(step_tile, step_takes_t)
     dev = u.device
     fields, held = _fill_args(
         model=model, step_tile=step_tile, u=u, a=a, x0=x0, window=window,
@@ -431,6 +476,11 @@ def launch_generic_tick(
         fields["filter_t"] = check("filter_t", filter_t, (T, T), dev)
         for name, shape in (("u_new", (T, nu)), ("u_shift", (T, nu)), ("finite", ())):
             out[name] = torch.empty(shape, dtype=torch.float32, device=dev)
+    if carry_W:
+        # zeroed on the stream, a fill kernel a CUDA graph captures: the
+        # carried starts begin at row 0
+        out["wp_adv"] = torch.zeros(1, dtype=torch.int32, device=dev)
+        fields["carry_span"] = carry_W
     launch("dmm_generic_tick", DmmGenericArgs(
         chol=check("chol_sigma", chol_sigma, (nu, nu), dev),
         eps=0 if eps_buf is None else eps_buf.data_ptr(),
@@ -481,15 +531,18 @@ def generic_mppi_tick(
     fuse_epilogue: bool = False,
     step_takes_t: bool = False,
     rollout_carry: bool = False,
+    carry_W: int = 0,
 ):
     """One MPPI tick for tile-step dynamics. Returns ``(S (K,), w (K,),
     w_eps (T, nu))``, then ``(u_new, u_shift, finite)`` when
-    ``fuse_epilogue``, then the ε used (K, T, nu) when ``emit_eps`` — the
-    JAX function's order."""
+    ``fuse_epilogue``, then the ε used (K, T, nu) when ``emit_eps``, then
+    with ``rollout_carry`` the furthest carried window row over K (0-d
+    int32) — the JAX function's order."""
     if fuse_epilogue and filter_t is None:
         raise ValueError("fuse_epilogue=True requires the (T, T) filter_t matrix")
     if eps is None and K % 128:
         raise ValueError(f"generated ε needs K a multiple of 128, got K={K}")
+    _check_carry(rollout_carry, carry_W, W)
     if not on_cuda(u, eps=eps, seed=seed, window=window, x0=x0, obstacles=obstacles):
         return generic_mppi_tick_plain(
             seed, u, a, chol_sigma, x0, window, stage_w, term_w, u_min, u_max, dt, n_exploit,
@@ -498,7 +551,7 @@ def generic_mppi_tick(
             step_tile=step_tile, nx=nx, nu=nu, n_track=n_track, K=K, T=T, W=W,
             wrap_yaw=wrap_yaw, last_only=last_only, emit_eps=emit_eps, collision=collision,
             fuse_epilogue=fuse_epilogue, step_takes_t=step_takes_t,
-            rollout_carry=rollout_carry,
+            rollout_carry=rollout_carry, carry_W=carry_W,
         )
     out = launch_generic_tick(
         seed=seed, u=u, a=a, chol_sigma=chol_sigma, x0=x0, window=window, stage_w=stage_w,
@@ -509,7 +562,7 @@ def generic_mppi_tick(
         filter_t=filter_t if fuse_epilogue else None, k_offset=k_offset, eps=eps,
         emit_eps=emit_eps, step_tile=step_tile, nx=nx, nu=nu, n_track=n_track, K=K, T=T, W=W,
         wrap_yaw=wrap_yaw, last_only=last_only, collision=collision,
-        step_takes_t=step_takes_t, rollout_carry=rollout_carry,
+        step_takes_t=step_takes_t, carry_W=carry_W if rollout_carry else 0,
     )
     generic_mppi_tick.launches += 1
     result = [out["S"], out["w"], out["w_eps"]]
@@ -517,6 +570,8 @@ def generic_mppi_tick(
         result.append((out["u_new"], out["u_shift"], out["finite"]))
     if emit_eps:
         result.append(eps if eps is not None else out["eps"].transpose(0, 1))
+    if rollout_carry:
+        result.append(out["wp_adv"][0])
     return tuple(result)
 
 

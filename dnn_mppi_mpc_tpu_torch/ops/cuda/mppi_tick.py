@@ -11,7 +11,13 @@ tensors it runs :func:`diffdrive_mppi_tick_plain`.
 Noise: ε is injected (K, T, 2), or drawn from the hash stream of
 ``ops/cuda/mathx.py`` as one block of K samples — the same stream as the
 K-blocked tick with ``K_BLK = K`` and as the JAX blocked kernel with
-``gaussian="hash"``. Drawn ε is stored only when ``emit_eps`` asks for it;
+``gaussian="hash"``.
+
+``rollout_carry`` (waypoint_carry="rollout", JAX ``mppi_tick.py:493-527,
+594-650``): ``window`` is the carry window gathered from the tick anchor,
+each sample carries its own window start from row 0 and searches
+``carry_W`` rows from it at each step, and the tick also returns the
+furthest final start over K (a row of the window, a 0-d int32 tensor). Drawn ε is stored only when ``emit_eps`` asks for it;
 otherwise Σw·ε draws it again (the same bits, summed in the same order, so
 both give the same results). The TPU's hardware Gaussians have no
 counterpart here.
@@ -80,10 +86,11 @@ def diffdrive_mppi_tick_plain(
     soft_safety_distance=2.0, soft_weight=100.0, filter_t=None,
     control_weight=None, *, K: int, T: int, W: int, last_only: bool = False,
     collision: str = "circle", fuse_epilogue: bool = False, iso_xy: bool = False,
-    emit_eps: bool = False,
+    emit_eps: bool = False, rollout_carry: bool = False, carry_W: int = 0,
 ):
     """Plain PyTorch version of :func:`diffdrive_mppi_tick`."""
     diffdrive_mppi_tick_plain.calls += 1
+    _check_carry(rollout_carry, carry_W, W)
     if eps is None:
         eps = hash_noise(seed, chol_sigma, K, T, K)
     obs, _ = pack_obstacles(obstacles, obstacle_velocities)
@@ -93,8 +100,10 @@ def diffdrive_mppi_tick_plain(
         obs_radius=effective_robot_radius(robot_radius, safety_margin_rate),
         drift=obstacle_velocities is not None, soft_dist=soft_safety_distance,
         soft_w=soft_weight, control_w=control_weight, iso_xy=iso_xy,
-        last_only=last_only,
+        last_only=last_only, carry_W=carry_W if rollout_carry else 0,
     )
+    if rollout_carry:
+        S, carried = S
     _, _, w = softmax_plain(S, inv_temperature)
     w_eps = weighted_noise_plain(w, eps)
     out = [S, w, w_eps]
@@ -102,7 +111,15 @@ def diffdrive_mppi_tick_plain(
         out.append(fused_epilogue_plain(w_eps, filter_t, u))
     if emit_eps:
         out.append(eps)
+    if rollout_carry:
+        out.append(carried.max().to(torch.int32))
     return tuple(out)
+
+
+def _check_carry(rollout_carry: bool, carry_W: int, W: int) -> None:
+    if rollout_carry and not 0 < carry_W <= W:
+        raise ValueError(f"rollout_carry needs a search span 0 < carry_W <= W={W}, "
+                         f"got carry_W={carry_W}")
 
 
 diffdrive_mppi_tick_plain.calls = 0
@@ -127,13 +144,15 @@ def launch_tick(
     n_exploit, inv_temperature, obstacles, obstacle_velocities, robot_radius,
     safety_margin_rate, soft_safety_distance, soft_weight, control_weight,
     filter_t, eps, eps_mode, k_blk, K, T, W, last_only, collision, iso_xy,
-    k_offset=0.0, block_offset=0, s_only=False,
+    k_offset=0.0, block_offset=0, s_only=False, carry_W=0,
 ):
     """Check the inputs, allocate the outputs and scratch and launch
     ``dmm_mppi_tick``. ``eps_mode``: 0 ε injected, 1 drawn and stored, 2
-    drawn (and drawn again in Σw·ε). Returns a dict of the output tensors
-    (``eps`` is the (T, K, 2) buffer, None when ε is drawn again; with
-    ``s_only`` only S is written)."""
+    drawn (and drawn again in Σw·ε). ``carry_W`` > 0: the rollout carry
+    with that search span (``wp_adv``, zeroed here before the launch, is
+    the (1,) int32 furthest carried row). Returns a dict of the output
+    tensors (``eps`` is the (T, K, 2) buffer, None when ε is drawn again;
+    with ``s_only`` only S is written)."""
     if collision not in _OBS_MODES:
         raise ValueError(f"collision must be 'circle' or 'soft', got {collision!r}")
     dev = u.device
@@ -187,6 +206,11 @@ def launch_tick(
         for name, shape in (("u_new", (T, 2)), ("u_shift", (T, 2)), ("finite", ())):
             out[name] = torch.empty(shape, dtype=torch.float32, device=dev)
             fields[name] = out[name].data_ptr()
+    if carry_W:
+        # zeroed on the stream (a fill kernel, which a CUDA graph captures):
+        # the carried starts begin at row 0, so 0 is the maximum's floor
+        out["wp_adv"] = torch.zeros(1, dtype=torch.int32, device=dev)
+        fields.update(wp_adv=out["wp_adv"].data_ptr(), carry_span=carry_W)
     launch("dmm_mppi_tick", DmmArgs(**fields), dev)
     return out
 
@@ -223,10 +247,14 @@ def diffdrive_mppi_tick(
     fuse_epilogue: bool = False,
     iso_xy: bool = False,
     emit_eps: bool = False,
+    rollout_carry: bool = False,
+    carry_W: int = 0,
 ):
     """One fused MPPI tick. Returns ``(S (K,), w (K,), w_eps (T, 2))``, then
     ``(u_new, u_shift, finite)`` when ``fuse_epilogue``, then the ε used
-    (K, T, 2) when ``emit_eps``.
+    (K, T, 2) when ``emit_eps``, then with ``rollout_carry`` the furthest
+    carried window row over K (0-d int32; ``window`` is then the carry
+    window and ``carry_W`` the per-step search span).
 
     ``iso_xy`` specializes the cost for symmetric x/y tracking weights
     (cost sw0·d²min + sw2·Δyaw²); the caller guarantees the symmetry."""
@@ -234,6 +262,7 @@ def diffdrive_mppi_tick(
         raise ValueError("fuse_epilogue=True requires the (T, T) filter_t matrix")
     if eps is None and K % 128:
         raise ValueError(f"generated ε needs K a multiple of 128, got K={K}")
+    _check_carry(rollout_carry, carry_W, W)
     if not on_cuda(u, eps=eps, seed=seed, window=window, x0=x0, obstacles=obstacles):
         return diffdrive_mppi_tick_plain(
             seed, u, a, chol_sigma, x0, window, stage_w, term_w, u_min, u_max,
@@ -241,7 +270,7 @@ def diffdrive_mppi_tick(
             safety_margin_rate, eps, obstacle_velocities, soft_safety_distance,
             soft_weight, filter_t, control_weight, K=K, T=T, W=W,
             last_only=last_only, collision=collision, fuse_epilogue=fuse_epilogue,
-            iso_xy=iso_xy, emit_eps=emit_eps,
+            iso_xy=iso_xy, emit_eps=emit_eps, rollout_carry=rollout_carry, carry_W=carry_W,
         )
     out = launch_tick(
         seed=seed, u=u, a=a, chol_sigma=chol_sigma, x0=x0, window=window,
@@ -254,6 +283,7 @@ def diffdrive_mppi_tick(
         filter_t=filter_t if fuse_epilogue else None,
         eps=eps, eps_mode=0 if eps is not None else (1 if emit_eps else 2), k_blk=K,
         K=K, T=T, W=W, last_only=last_only, collision=collision, iso_xy=iso_xy,
+        carry_W=carry_W if rollout_carry else 0,
     )
     diffdrive_mppi_tick.launches += 1
     result = [out["S"], out["w"], out["w_eps"]]
@@ -261,6 +291,8 @@ def diffdrive_mppi_tick(
         result.append((out["u_new"], out["u_shift"], out["finite"]))
     if emit_eps:
         result.append(eps if eps is not None else out["eps"].transpose(0, 1))
+    if rollout_carry:
+        result.append(out["wp_adv"][0])
     return tuple(result)
 
 

@@ -1,6 +1,7 @@
 """Windowed nearest-waypoint lookup (counterpart of
-``dnn_mppi_mpc_tpu/ops/waypoints.py``; the per-rollout carried variant is
-still to be ported), for one controller and for a fleet of B.
+``dnn_mppi_mpc_tpu/ops/waypoints.py``), for one controller, for a fleet of
+B, and with one carried window start per rollout
+(:func:`nearest_waypoint_carried`, ``waypoint_carry="rollout"``).
 
 The window start is a device tensor and the window is a device gather, so a
 control tick never waits on the host for it.
@@ -47,6 +48,36 @@ def nearest_waypoint(
     return local + start, ref
 
 
+def nearest_waypoint_carried(
+    ref_path: torch.Tensor,
+    xy: torch.Tensor,
+    start_idx: torch.Tensor,
+    search_len: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Nearest waypoint with one window per query (``waypoint_carry=
+    "rollout"``): ``start_idx`` has the batch shape of ``xy`` (..., 2), so
+    each rollout's window advances on its own through the rollout.
+
+    The window is ``[start, start + W)`` truncated at the path end, like the
+    reference's ``[prev : prev + W]`` slice: the start is clipped to
+    [0, P − 1] (never down by up to W − 1, which would let a carried index
+    regress), the gathered indices are clamped to P − 1, and argmin's first
+    tie resolves the duplicate end rows to the genuine index. Returns
+    ``(idx, ref)``: (...,) int64 with idx ≥ start_idx, and the (..., d)
+    rows."""
+    P = ref_path.shape[0]
+    W = min(search_len, P)
+    start = torch.clamp(start_idx.to(torch.int64), 0, P - 1)
+    offs = torch.arange(W, dtype=torch.int64, device=ref_path.device)
+    gidx = torch.clamp(start[..., None] + offs, max=P - 1)  # (..., W)
+    rows = ref_path.index_select(0, gidx.reshape(-1)).reshape(gidx.shape + ref_path.shape[1:])
+    d2 = ((xy[..., None, :2] - rows[..., :2]) ** 2).sum(-1)
+    local = torch.argmin(d2, dim=-1)
+    idx = torch.clamp(start + local, max=P - 1)
+    ref = torch.gather(rows, -2, local[..., None, None].expand(local.shape + (1, rows.shape[-1])))
+    return idx, ref[..., 0, :]
+
+
 def fleet_waypoint_windows(
     ref_path: torch.Tensor, start_idx: torch.Tensor, search_len: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -79,4 +110,4 @@ def fleet_nearest_waypoint(
 
 
 __all__ = ["fleet_nearest_waypoint", "fleet_waypoint_windows", "nearest_waypoint",
-           "waypoint_window"]
+           "nearest_waypoint_carried", "waypoint_window"]

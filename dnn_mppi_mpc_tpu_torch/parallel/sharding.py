@@ -134,7 +134,7 @@ def make_sharded_fused_mppi_step(
     runs its kernels with SUM whatever the config says)."""
     from ..ops.cuda.mppi_tick_blocked import diffdrive_mppi_tick_blocked, weighted_noise_reduce
 
-    _check_tick_carry(cfg)
+    _check_tick_carry(cfg, "sharded two-phase tick")
     _reject_repeats(cfg, "sharded two-phase tick")
     _reject_last(cfg, "sharded two-phase tick")
     _check_kernel_collision(collision)

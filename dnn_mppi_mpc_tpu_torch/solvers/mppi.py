@@ -35,11 +35,14 @@ No step waits on the host: the waypoint window start, the tick seed and the
 carried key stay on the device. Entry points run on the card unless the
 caller passes ``device="cpu"``.
 
-Not ported yet (each raises ``ValueError``, never ignored):
-``waypoint_carry="rollout"``, the vmapped scan fleet, lifted and
-time-varying tile steps on the card (they run on the CPU), and the TPU-only
-tuning knobs (``lean``, ``fold_anchor``, ``sincos`` modes, hardware
-Gaussians).
+``waypoint_carry="rollout"`` (a window start carried by each rollout) runs
+on the scan path, the diff-drive fused tick and the generic tick; the split
+rollouts, the K-blocked tick, the race car and the fleet raise, as in JAX.
+
+Not ported yet (each raises ``ValueError``, never ignored): the vmapped
+scan fleet, lifted and time-varying tile steps on the card (they run on the
+CPU), and the TPU-only tuning knobs (``lean``, ``fold_anchor``, ``sincos``
+modes, hardware Gaussians).
 """
 
 from __future__ import annotations
@@ -71,6 +74,7 @@ from ..ops.waypoints import (
     fleet_nearest_waypoint,
     fleet_waypoint_windows,
     nearest_waypoint,
+    nearest_waypoint_carried,
     waypoint_window,
 )
 
@@ -152,7 +156,12 @@ class CostContext(NamedTuple):
     """Tick-level context threaded to the stage/terminal costs."""
 
     params: MPPIParams
-    waypoint_start: torch.Tensor  # () int64 window start of this tick
+    # () int64 window start of this tick; with waypoint_carry="rollout" the
+    # per-sample carried starts
+    waypoint_start: torch.Tensor
+    # the nearest-waypoint rows (..., d) the carried rollout already looked
+    # up for this step, which the tracking cost reuses
+    waypoint_ref: Optional[torch.Tensor] = None
 
 
 StageCost = Callable[[torch.Tensor, int, CostContext], torch.Tensor]
@@ -192,9 +201,16 @@ def make_tracking_costs(
         )
 
     def tracking(x, weight, ctx):
-        _, ref = nearest_waypoint(
-            ctx.params.ref_path, x[..., :2], ctx.waypoint_start, cfg.waypoint_search_len
-        )
+        if ctx.waypoint_ref is not None:
+            ref = ctx.waypoint_ref
+        elif ctx.waypoint_start.dim() > 0:  # waypoint_carry="rollout": per-sample starts
+            _, ref = nearest_waypoint_carried(
+                ctx.params.ref_path, x[..., :2], ctx.waypoint_start, cfg.waypoint_search_len
+            )
+        else:
+            _, ref = nearest_waypoint(
+                ctx.params.ref_path, x[..., :2], ctx.waypoint_start, cfg.waypoint_search_len
+            )
         n = weight.shape[-1]
         err = x[..., :n] - ref[..., :n]
         if wrap_yaw:
@@ -239,12 +255,50 @@ def _time_indexed(cfg, dynamics_step):
     return lambda x, v, t: dynamics_step(x, v)
 
 
-def _check_tick_carry(cfg: MPPIConfig) -> None:
+def _check_carry_modes(cfg: MPPIConfig) -> None:
+    if cfg.waypoint_carry not in ("tick", "rollout"):
+        raise ValueError(f"waypoint_carry must be 'tick' or 'rollout': {cfg.waypoint_carry!r}")
+    if cfg.waypoint_persist not in ("none", "max"):
+        raise ValueError(f"waypoint_persist must be 'none' or 'max': {cfg.waypoint_persist!r}")
+
+
+def _check_tick_carry(cfg: MPPIConfig, what: str) -> None:
+    """``what`` anchors its waypoint window per tick: the per-rollout carry
+    raises (JAX implements it only in the scan path, the single-block
+    diff-drive tick and the generic tick)."""
+    _check_carry_modes(cfg)
     if cfg.waypoint_carry != "tick":
         raise ValueError(
-            f"waypoint_carry={cfg.waypoint_carry!r} is not ported yet: only "
-            "'tick' (one waypoint window per control tick)"
+            f"waypoint_carry={cfg.waypoint_carry!r} is not implemented by the {what}: the "
+            "per-rollout carry runs in the scan path, the single-block diff-drive fused "
+            "tick and the generic fused tick"
         )
+
+
+def carry_window_len(cfg: MPPIConfig, P: int) -> int:
+    """The rows a carrying kernel gathers from the tick anchor:
+    ``carry_window_len`` (default W + T), at most the path's P."""
+    n = cfg.carry_window_len
+    return min(cfg.waypoint_search_len + cfg.horizon if n is None else n, P)
+
+
+def _carry_window(cfg, params, ctx, columns: int):
+    """The carry window of a carrying kernel: the ``carry_window_len`` rows
+    from the tick anchor (clipped to [0, P − 1]) with indices clamped to
+    P − 1, so the path end repeats its last row (the kernels' first-tie rule
+    resolves the repeats to the genuine index); the anchor, the rows and the
+    per-step search span."""
+    P = params.ref_path.shape[0]
+    start = torch.clamp(ctx.waypoint_start, 0, P - 1)
+    rows = torch.clamp(start + torch.arange(carry_window_len(cfg, P), dtype=torch.int64,
+                                            device=start.device), max=P - 1)
+    window = params.ref_path.index_select(0, rows)[:, :columns].contiguous()
+    return start, window, min(cfg.waypoint_search_len, P)
+
+
+def _carried_global(start, wp_adv, P: int) -> torch.Tensor:
+    """The kernel's furthest local carried row as a global path index."""
+    return torch.clamp(start + wp_adv.to(torch.int64).reshape(()), max=P - 1)
 
 
 def mppi_step(
@@ -276,8 +330,14 @@ def mppi_step(
     [i·K/n, (i+1)·K/n) — its (K/n, T, dim_u) slice of ``noise``, or ε from
     its own ``generator`` — and ρ (all-reduce MIN), η (SUM) and Σw·ε (SUM)
     are taken over all ranks; ``aux.costs`` / ``aux.weights`` are this
-    rank's. Nothing changes without a group."""
-    _check_tick_carry(cfg)
+    rank's. Nothing changes without a group.
+
+    ``cfg.waypoint_carry="rollout"`` carries a window start per rollout
+    (scan path, or a ``tick_fn`` with ``supports_rollout_carry`` that returns
+    the furthest carried index last); with ``waypoint_persist="max"`` the
+    furthest index becomes the next tick's window start, while ``status``
+    still judges the tick-level index."""
+    _check_carry_modes(cfg)
     K, T = cfg.num_samples, cfg.horizon
     n_ranks = 1 if group is None else dist.get_world_size(group)
     local_K = K // n_ranks
@@ -288,6 +348,12 @@ def mppi_step(
         params.ref_path, x0[:2], state.waypoint_idx, cfg.waypoint_search_len
     )
     ctx = CostContext(params=params, waypoint_start=wp_idx)
+    carry = cfg.waypoint_carry == "rollout"
+    if carry and rollout_fn is not None:
+        raise ValueError(
+            "waypoint_carry='rollout' is not supported by the sharded rollout_fn path "
+            "(the per-sample carry is kernel-local) — use the fused tick or the scan path"
+        )
     if params.control_weight is not None and (
         rollout_fn is not None
         or (tick_fn is not None and not getattr(tick_fn, "supports_control_cost", False))
@@ -296,7 +362,13 @@ def mppi_step(
             "params.control_weight is implemented in the scan path and the "
             "single-block fused tick — this rollout_fn/tick_fn does not support it"
         )
+    if carry and tick_fn is not None and not getattr(tick_fn, "supports_rollout_carry", False):
+        raise ValueError(
+            "this tick_fn anchors its waypoint window per tick — build it with a cfg whose "
+            "waypoint_carry='rollout' (make_cuda_diffdrive_tick / make_cuda_generic_tick)"
+        )
     key = advance_key(state.key)
+    persist = carry and cfg.waypoint_persist == "max"
 
     if tick_fn is not None:
         if group is not None:
@@ -305,13 +377,20 @@ def mppi_step(
                 "sample-sharded execution"
             )
         out = tick_fn(params, ctx, u, x0, tick_seed(state.key), noise)
+        wp_next, status_idx = wp_idx, None
+        if carry:
+            *out, wp_carried = out
+            if persist:
+                wp_next, status_idx = wp_carried, wp_idx
         if getattr(tick_fn, "fused_epilogue", False):
             S, w, _, (u_new, u_shift, finite) = out
             return _mppi_tail_fused(
-                cfg, dynamics_step, params, x0, key, wp_idx, S, w, u_new, u_shift, finite
+                cfg, dynamics_step, params, x0, key, wp_next, S, w, u_new, u_shift, finite,
+                status_idx,
             )
         S, w, w_eps = out
-        return _mppi_tail(cfg, dynamics_step, params, x0, u, key, wp_idx, S, w, w_eps)
+        return _mppi_tail(cfg, dynamics_step, params, x0, u, key, wp_next, S, w, w_eps,
+                          status_idx)
 
     if noise is None:
         if generator is None:
@@ -322,11 +401,19 @@ def mppi_step(
     if eps.shape[0] != local_K:
         raise ValueError(f"noise has {eps.shape[0]} samples, expected {local_K} on this rank")
 
+    status_idx = None
     if rollout_fn is not None:
         S = rollout_fn(params, ctx, u, eps, x0, k_offset=k_offset)
     else:
-        S = _scan_rollout(cfg, dynamics_step, stage_cost, terminal_cost, params, ctx, u, eps, x0,
-                          k_offset)
+        S, wpi_final = _scan_rollout(cfg, dynamics_step, stage_cost, terminal_cost, params, ctx,
+                                     u, eps, x0, k_offset)
+        if persist:
+            # the furthest carried index becomes the next tick's window start;
+            # the end-of-path status keeps judging the tick-level index
+            wp_next = wpi_final.max()
+            if group is not None:
+                dist.all_reduce(wp_next, op=dist.ReduceOp.MAX, group=group)
+            wp_idx, status_idx = wp_next, wp_idx
 
     inv_temp = f32(cfg.inv_temperature)
     if group is None:
@@ -343,14 +430,19 @@ def mppi_step(
         w = m / eta
         w_eps = (w[:, None, None] * eps).sum(0)
         dist.all_reduce(w_eps, op=dist.ReduceOp.SUM, group=group)
-    return _mppi_tail(cfg, dynamics_step, params, x0, u, key, wp_idx, S, w, w_eps)
+    return _mppi_tail(cfg, dynamics_step, params, x0, u, key, wp_idx, S, w, w_eps, status_idx)
 
 
 def _scan_rollout(cfg, dynamics_step, stage_cost, terminal_cost, params, ctx, u, eps, x0,
                   k_offset=0.0):
     """Per-sample costs S (K_local,) of the plain rollout loop over T, for
     the samples of ``eps`` from global index ``k_offset`` on (the
-    exploration split is over the global K)."""
+    exploration split is over the global K), and with
+    ``waypoint_carry="rollout"`` the final carried window starts (else
+    None): each step looks up its rows from the carry before the step (the
+    reference's ``_get_nearest_waypoint(update_prev_idx=True)``) and its
+    argmin becomes the next carry; the terminal cost searches from the
+    final carry."""
     K, T = eps.shape[0], cfg.horizon
     k_idx = torch.arange(K, dtype=torch.float32, device=u.device)
     if k_offset:
@@ -369,20 +461,29 @@ def _scan_rollout(cfg, dynamics_step, stage_cost, terminal_cost, params, ctx, u,
     x = x0.expand(batch + x0.shape)
     s = torch.zeros(batch, dtype=u.dtype, device=u.device)
     var = torch.zeros(K, dtype=u.dtype, device=u.device)
+    carry = cfg.waypoint_carry == "rollout"
+    wpi = ctx.waypoint_start.expand(batch) if carry else None
     for t in range(T):
         v_t = v[:, t] if M == 1 else v[:, t].expand((M,) + v[:, t].shape)
         x = dyn_t(x, v_t, t)
-        c = stage_cost(x, t, ctx) + energy[:, t]
+        ctx_t = ctx
+        if carry:
+            idx_new, ref = nearest_waypoint_carried(
+                params.ref_path, x[..., :2], wpi, cfg.waypoint_search_len
+            )
+            ctx_t = ctx._replace(waypoint_start=wpi, waypoint_ref=ref)
+            wpi = idx_new
+        c = stage_cost(x, t, ctx_t) + energy[:, t]
         if params.control_weight is not None:
             c = c + (params.control_weight * v_t * v_t).sum(-1)
         if M > 1:
             disc = np.float32(cfg.rollout_var_discount) ** np.float32(t)
             var = var + c.var(0, unbiased=False) * float(disc)
         s = s + c if cfg.accumulation == CostAccumulation.SUM else c
-    S = s + terminal_cost(x, ctx)
+    S = s + terminal_cost(x, ctx._replace(waypoint_start=wpi) if carry else ctx)
     if M > 1:
         S = S.mean(0) + cfg.rollout_var_cost * var
-    return S
+    return S, wpi
 
 
 def _optimal_traj(cfg, dynamics_step, params, x0, u_new):
@@ -399,30 +500,37 @@ def _optimal_traj(cfg, dynamics_step, params, x0, u_new):
 
 
 def _status(params, wp_idx, finite):
+    # with a persisted lookahead carry the caller passes the tick-level index
     # a fleet's per-member (B, P, d) path: member 0's length P, as the JAX
     # fleet tail reads it
     end_of_path = (wp_idx >= params.ref_path.shape[-2] - 1).to(torch.int64)
     return end_of_path + 2 * torch.logical_not(finite).to(torch.int64)
 
 
-def _mppi_tail(cfg, dynamics_step, params, x0, u, key, wp_idx, S, w, w_eps):
+def _mppi_tail(cfg, dynamics_step, params, x0, u, key, wp_idx, S, w, w_eps, status_idx=None):
     """Tick tail: smoothing, update, non-finite hold, shift, diagnostics —
     for one controller, or written over a fleet's leading member axis (each
-    member held on its own non-finite update)."""
+    member held on its own non-finite update). ``status_idx`` (default
+    ``wp_idx``) is the index the end-of-path flag judges: a persisted
+    lookahead ``wp_idx`` reaches the path end ticks before the robot."""
     w_eps = apply_filter(w_eps, cfg.filter, cfg.filter_window, cfg.savgol_polyorder)
     u_new = u + w_eps
     optimal_traj = _optimal_traj(cfg, dynamics_step, params, x0, u_new)
     finite = torch.isfinite(u_new).all(-1).all(-1)
     u_new = torch.where(finite[..., None, None], u_new, u)
     u_shift = torch.cat([u_new[..., 1:, :], u_new[..., -1:, :]], dim=-2)
-    aux = MPPIAux(S, w, optimal_traj, wp_idx, _status(params, wp_idx, finite))
+    sidx = wp_idx if status_idx is None else status_idx
+    aux = MPPIAux(S, w, optimal_traj, wp_idx, _status(params, sidx, finite))
     return u_new[..., 0, :], MPPIState(u_prev=u_shift, waypoint_idx=wp_idx, key=key), aux
 
 
-def _mppi_tail_fused(cfg, dynamics_step, params, x0, key, wp_idx, S, w, u_new, u_shift, finite):
-    """Tick tail when the kernel already filtered, updated, held and shifted."""
+def _mppi_tail_fused(cfg, dynamics_step, params, x0, key, wp_idx, S, w, u_new, u_shift, finite,
+                     status_idx=None):
+    """Tick tail when the kernel already filtered, updated, held and shifted
+    (``status_idx``: see :func:`_mppi_tail`)."""
     optimal_traj = _optimal_traj(cfg, dynamics_step, params, x0, u_new)
-    aux = MPPIAux(S, w, optimal_traj, wp_idx, _status(params, wp_idx, finite >= 0.5))
+    sidx = wp_idx if status_idx is None else status_idx
+    aux = MPPIAux(S, w, optimal_traj, wp_idx, _status(params, sidx, finite >= 0.5))
     return u_new[0], MPPIState(u_prev=u_shift, waypoint_idx=wp_idx, key=key), aux
 
 
@@ -508,7 +616,7 @@ def make_cuda_diffdrive_rollout(
     """Bind the split rollout kernel (ops/cuda/rollout.py) as ``rollout_fn``."""
     from ..ops.cuda.rollout import diffdrive_rollout_costs
 
-    _check_tick_carry(cfg)
+    _check_tick_carry(cfg, "split rollout kernel")
     _reject_repeats(cfg, "split rollout kernel")
 
     def rollout(params, ctx, u, eps, x0, k_offset=0.0):
@@ -550,10 +658,16 @@ def make_cuda_diffdrive_tick(
     obstacles may drift). ``iso_xy`` specializes for symmetric x/y weights
     (the solver checks them once per params object). With
     ``fuse_epilogue`` the kernel also applies the filter, update,
-    non-finite hold and shift."""
+    non-finite hold and shift.
+
+    With ``cfg.waypoint_carry="rollout"`` the kernel carries each sample's
+    window start through the rollout over ``carry_window_len`` rows gathered
+    from the tick anchor, and the tick returns the furthest carried index
+    (a global path index) last (``supports_rollout_carry``)."""
     from ..ops.cuda.mppi_tick import diffdrive_mppi_tick
 
-    _check_tick_carry(cfg)
+    _check_carry_modes(cfg)
+    carry = cfg.waypoint_carry == "rollout"
     _reject_unported(sincos=sincos, gaussian=gaussian, fold_anchor=fold_anchor, lean=lean)
     _reject_repeats(cfg, "fused tick")
     _check_kernel_collision(collision)
@@ -564,13 +678,17 @@ def make_cuda_diffdrive_tick(
     filter_t = {}  # device → Fᵀ tensor, made once per device
 
     def tick(params, ctx, u, x0, seed, noise):
-        window, W = _tick_window(cfg, params, ctx, 3)
+        if carry:
+            start, window, span = _carry_window(cfg, params, ctx, 3)
+            W = window.shape[0]
+        else:
+            (window, W), span = _tick_window(cfg, params, ctx, 3), 0
         ft = None
         if fuse_epilogue:
             if u.device not in filter_t:
                 filter_t[u.device] = torch.as_tensor(filter_np, device=u.device)
             ft = filter_t[u.device]
-        return diffdrive_mppi_tick(
+        out = diffdrive_mppi_tick(
             seed, u, _energy_rows(cfg, params, u), small_cholesky(params.sigma),
             x0, window, params.stage_weight, params.terminal_weight,
             params.u_min, params.u_max, cfg.dt,
@@ -584,10 +702,16 @@ def make_cuda_diffdrive_tick(
             K=cfg.num_samples, T=cfg.horizon, W=W,
             last_only=cfg.accumulation == CostAccumulation.LAST,
             collision=collision, fuse_epilogue=fuse_epilogue, iso_xy=iso_xy,
+            rollout_carry=carry, carry_W=span,
         )
+        if not carry:
+            return out
+        *out, wp_adv = out
+        return (*out, _carried_global(start, wp_adv, params.ref_path.shape[0]))
 
     tick.fused_epilogue = fuse_epilogue
     tick.supports_control_cost = True
+    tick.supports_rollout_carry = carry
     tick.iso_xy = iso_xy
     return tick
 
@@ -607,7 +731,7 @@ def make_cuda_diffdrive_tick_blocked(
     — pod-scale K, hash-stream ε only (injected noise raises)."""
     from ..ops.cuda.mppi_tick_blocked import diffdrive_mppi_tick_blocked
 
-    _check_tick_carry(cfg)
+    _check_tick_carry(cfg, "K-blocked fused tick")
     _reject_unported(sincos=sincos)
     _reject_repeats(cfg, "blocked fused tick")
     _check_kernel_collision(collision)
@@ -673,7 +797,7 @@ def make_cuda_bicycle_rollout(
     rollouts and moving obstacles raise ``ValueError``."""
     from ..ops.cuda.rollout_bicycle import bicycle_rollout_costs
 
-    _check_tick_carry(cfg)
+    _check_tick_carry(cfg, "split bicycle rollout")
     _reject_last(cfg, "split bicycle rollout")
     _reject_repeats(cfg, "split bicycle rollout")
     vehicle = dict(wheel_base=wheel_base, vehicle_length=vehicle_length,
@@ -703,7 +827,7 @@ def make_cuda_bicycle_tick(
     params object)."""
     from ..ops.cuda.bicycle_tick import bicycle_mppi_tick
 
-    _check_tick_carry(cfg)
+    _check_tick_carry(cfg, "fused bicycle tick")
     _reject_unported(sincos=sincos, gaussian=gaussian)
     _reject_last(cfg, "fused bicycle tick")
     _reject_repeats(cfg, "fused bicycle tick")
@@ -740,10 +864,14 @@ class _SigmaFactors:
         return self.chol, self.inverse
 
 
-def _generic_setup(cfg, step_tile, collision, what):
-    """The checks both generic binders make at construction; the state
-    width (the tile step's, or ``cfg.dim_x`` for a lifted step)."""
-    _check_tick_carry(cfg)
+def _generic_setup(cfg, step_tile, collision, what, carries: bool = False):
+    """The checks both generic binders make at construction (``carries``:
+    the binder implements ``waypoint_carry="rollout"``); the state width
+    (the tile step's, or ``cfg.dim_x`` for a lifted step)."""
+    if carries:
+        _check_carry_modes(cfg)
+    else:
+        _check_tick_carry(cfg, what)
     _reject_repeats(cfg, what)
     if collision not in ("circle", "soft"):
         raise ValueError(
@@ -761,9 +889,10 @@ def _generic_setup(cfg, step_tile, collision, what):
     return cfg.dim_x
 
 
-def _generic_kernel_args(cfg, params, ctx, u, energy_inverse, n_track_what):
+def _generic_kernel_args(cfg, params, ctx, u, energy_inverse, n_track_what, carry=False):
     """This tick's window, energy rows and tracked width for the generic
-    kernels (one n_track for both costs, as in JAX)."""
+    kernels (one n_track for both costs, as in JAX); with ``carry`` the
+    carry window (:func:`_carry_window`), its anchor and the search span."""
     n_track = int(params.stage_weight.shape[0])
     if params.terminal_weight.shape[0] != n_track:
         raise ValueError(
@@ -771,9 +900,13 @@ def _generic_kernel_args(cfg, params, ctx, u, energy_inverse, n_track_what):
             f"{n_track} dims, terminal_weight {params.terminal_weight.shape[0]}; use the "
             "scan path for asymmetric weights"
         )
-    window, W = _tick_window(cfg, params, ctx, n_track)
     a = (cfg.gamma * matmul_f32(u, energy_inverse)).contiguous()
-    return dict(a=a, window=window, W=W, n_track=n_track)
+    if carry:
+        start, window, span = _carry_window(cfg, params, ctx, n_track)
+        return dict(a=a, window=window, W=window.shape[0], n_track=n_track, start=start,
+                    span=span)
+    window, W = _tick_window(cfg, params, ctx, n_track)
+    return dict(a=a, window=window, W=W, n_track=n_track, span=0)
 
 
 def make_cuda_generic_tick(
@@ -798,13 +931,16 @@ def make_cuda_generic_tick(
     update, non-finite hold and shift.
 
     On the card the step must be of a built-in family; a lifted or
-    time-varying step runs on CPU tensors only. Repeats, the per-rollout
-    waypoint carry, a collision other than circle or soft and stage/terminal
-    weights of different lengths raise ``ValueError``."""
+    time-varying step runs on CPU tensors only. Repeats, a collision other
+    than circle or soft and stage/terminal weights of different lengths
+    raise ``ValueError``. ``cfg.waypoint_carry="rollout"`` carries each
+    sample's window start as the diff-drive tick does
+    (:func:`make_cuda_diffdrive_tick`)."""
     from ..ops.cuda.generic_tick import generic_mppi_tick
 
     _reject_unported(gaussian=gaussian)
-    nx = _generic_setup(cfg, step_tile, collision, "generic fused tick")
+    nx = _generic_setup(cfg, step_tile, collision, "generic fused tick", carries=True)
+    carry = cfg.waypoint_carry == "rollout"
     filter_np = np.ascontiguousarray(
         filter_matrix(cfg.filter.value, cfg.horizon, cfg.filter_window, cfg.savgol_polyorder).T,
         np.float32,
@@ -814,13 +950,13 @@ def make_cuda_generic_tick(
 
     def tick(params, ctx, u, x0, seed, noise):
         chol, inverse = factors(params)
-        args = _generic_kernel_args(cfg, params, ctx, u, inverse, "generic fused tick")
+        args = _generic_kernel_args(cfg, params, ctx, u, inverse, "generic fused tick", carry)
         ft = None
         if fuse_epilogue:
             if u.device not in filter_t:
                 filter_t[u.device] = torch.as_tensor(filter_np, device=u.device)
             ft = filter_t[u.device]
-        return generic_mppi_tick(
+        out = generic_mppi_tick(
             seed, u, args["a"], chol, x0, args["window"], params.stage_weight,
             params.terminal_weight, params.u_min, params.u_max, cfg.dt,
             (1.0 - cfg.exploration) * cfg.num_samples, cfg.inv_temperature,
@@ -833,9 +969,15 @@ def make_cuda_generic_tick(
             K=cfg.num_samples, T=cfg.horizon, W=args["W"], wrap_yaw=wrap_yaw,
             last_only=cfg.accumulation == CostAccumulation.LAST, collision=collision,
             fuse_epilogue=fuse_epilogue, step_takes_t=cfg.time_varying_dynamics,
+            rollout_carry=carry, carry_W=args["span"],
         )
+        if not carry:
+            return out
+        *out, wp_adv = out
+        return (*out, _carried_global(args["start"], wp_adv, params.ref_path.shape[0]))
 
     tick.fused_epilogue = fuse_epilogue
+    tick.supports_rollout_carry = carry
     return tick
 
 
@@ -931,7 +1073,7 @@ def make_fleet_fused_mppi_step(
     ``device``; tensors elsewhere raise ``ValueError``."""
     from ..ops.cuda.mppi_tick_blocked import fleet_mppi_tick
 
-    _check_tick_carry(cfg)
+    _check_tick_carry(cfg, "fleet fused tick")
     _reject_unported(sincos=sincos)
     _reject_repeats(cfg, "fleet fused tick")
     _check_kernel_collision(collision)
@@ -1040,7 +1182,7 @@ class MPPISolver:
         device="cuda",
         seed: int = 0,
     ) -> None:
-        _check_tick_carry(cfg)
+        _check_carry_modes(cfg)
         _reject_unported(sincos=sincos, gaussian=gaussian, fold_anchor=fold_anchor, lean=lean)
         use_kernel = cfg.use_kernel if use_kernel is None else use_kernel
         if cfg.time_varying_dynamics and (use_kernel or fused_tick) and (
@@ -1077,6 +1219,12 @@ class MPPISolver:
             )
         if tick_fn is None and fused_tick:
             if _EPS_BYTES_PER_SAMPLE_STEP * cfg.horizon * cfg.num_samples > _SINGLE_BLOCK_VMEM_BUDGET:
+                if cfg.waypoint_carry == "rollout":
+                    raise ValueError(
+                        "waypoint_carry='rollout' is implemented in the single-block fused "
+                        "tick (K·T under the JAX package's budget) and the generic tick — "
+                        "reduce num_samples/horizon or use the scan path at this scale"
+                    )
                 tick_fn = make_cuda_diffdrive_tick_blocked(
                     cfg, robot_radius, k_block=_pick_k_block(cfg.num_samples, cfg.horizon),
                     collision=collision, soft_safety_distance=soft_safety_distance,

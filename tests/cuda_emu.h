@@ -225,6 +225,12 @@ inline long long clock64() {  // a count, not a time: it only moves forward
   static long long ticks = 0;
   return ++ticks;
 }
+// the fibers of a launch run one at a time on one thread: a plain update
+inline int atomicMax(int* p, int v) {
+  const int old = *p;
+  *p = std::max(old, v);
+  return old;
+}
 template <class T>
 inline T __ldg(const T* p) {
   return *p;

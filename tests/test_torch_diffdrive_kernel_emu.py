@@ -32,7 +32,15 @@ tick's two hash-ε routes (ε stored, ε drawn again) are bit-equal, and a
 second call repeats the first. The goal-seeking row's combination (W = 1,
 three soft drifting obstacles, the action cost, the SavGol(50, 3)
 epilogue, K = 640 in chunks of 214, 214 and 212) runs through every G
-build, ε injected and drawn. Skips without g++.
+build, ε injected and drawn.
+
+The fused tick's ``rollout_carry`` (waypoint_carry="rollout") runs through
+every G build with ε injected and drawn, ISO on and off, on a 40-row carry
+window searched 8 rows a step, one whose last rows repeat the path's end
+(the clamped gather), rows that tie exactly, a NaN row inside the span, and
+samples whose state goes NaN (ε NaN: the carry then keeps its start): S and
+the furthest carried row bit-equal to the plain version, and to the G = 1
+build's. Skips without g++.
 """
 
 from __future__ import annotations
@@ -537,6 +545,118 @@ def test_chunk_layouts_of_several_samples_and_steps(libs, shape, monkeypatch):
         assert torch.equal(again[name], out[name]), name
 
 
+# the carry (rollout_carry): a carry window and the per-step search span.
+# Rows [start, start + 40) of a 60-point line, the last rows repeated past
+# the path's end, ties, a NaN row; "NaN state": ε NaN for samples 5 and 30
+CARRY_CASES = {
+    "span 8": dict(start=0, span=8),
+    "span 3": dict(start=0, span=3),
+    "path end": dict(start=45, span=8, x0=[2.4, -1.15, -0.46]),
+    "twins": dict(start=0, span=8, twin=4),
+    "NaN row 5": dict(start=0, span=8, nan_row=5),
+    "NaN state": dict(start=0, span=8, nan_eps=(5, 30)),
+}
+
+
+def _carry_window(start, twin=None, nan_row=None, rows=40, n=60):
+    path = np.stack([np.linspace(0, 3, n), np.linspace(0, -1.5, n), np.full(n, -0.46)], 1)
+    if twin is not None:  # rows twin apart share their (x, y): exact ties
+        path[twin::twin * 2, :2] = path[0:-twin:twin * 2, :2][:len(path[twin::twin * 2])]
+    window = path[np.minimum(start + np.arange(rows), n - 1)].copy()
+    if nan_row is not None:
+        window[nan_row] = np.nan
+    return f32(window)
+
+
+def _carry_tick(p, *, K, inject, iso, span, emit=False):
+    """The fused tick with the carry and the epilogue through
+    ``launch_tick``; the plain version on the ε the kernel used."""
+    ft = f32(np.triu(np.ones((T, T))) / np.arange(1, T + 1)[None, :])
+    common = dict(
+        seed=torch.tensor([SEED]), u=p["u"], a=p["a"], chol_sigma=p["chol_sigma"], x0=p["x0"],
+        window=p["window"], stage_w=p["stage_w"], term_w=p["term_w"], u_min=p["u_min"],
+        u_max=p["u_max"], dt=DT, n_exploit=0.8 * K, inv_temperature=1.0 / 0.8,
+        obstacles=None, obstacle_velocities=None, robot_radius=0.05, safety_margin_rate=1.5,
+        soft_safety_distance=0.3, soft_weight=10.0, control_weight=None, K=K, T=T,
+        W=p["window"].shape[0], last_only=False, collision="circle", iso_xy=iso)
+    out = mt.launch_tick(**common, filter_t=ft, eps=p["eps"] if inject else None,
+                         eps_mode=0 if inject else (1 if emit else 2), k_blk=K, carry_W=span)
+    eps = p["eps"] if inject else hash_noise(torch.tensor([SEED]), p["chol_sigma"], K, T, K)
+    args = dict(common)
+    args.pop("seed")
+    plain = mt.diffdrive_mppi_tick_plain(None, eps=eps.contiguous(), filter_t=ft,
+                                         fuse_epilogue=True, rollout_carry=True, carry_W=span,
+                                         **args)
+    return out, plain
+
+
+@pytest.mark.parametrize("build", [f"G{g}" for g in GROUPS])
+@pytest.mark.parametrize("iso", [True, False], ids=["iso", "xy"])
+@pytest.mark.parametrize("case", list(CARRY_CASES))
+def test_fused_tick_carry_injected(libs, build, iso, case):
+    """The carry with ε injected: S and the furthest carried row bit-equal to
+    the plain version (NaN where it is NaN) and to the G = 1 build's; the
+    carry moves past row 0; w, Σ w·ε and the epilogue within TOL where S is
+    finite."""
+    kw = dict(CARRY_CASES[case])
+    span, nan_eps, x0 = kw.pop("span"), kw.pop("nan_eps", ()), kw.pop("x0", None)
+    K = K_SPLIT
+    p = _inputs(K, seed=5)
+    p["window"] = _carry_window(**kw)
+    if x0 is not None:
+        p["x0"] = f32(x0)
+    for k in nan_eps:
+        p["eps"][k, 2:] = float("nan")
+    with running_on(libs["G1"]):
+        g1, _ = _carry_tick(p, K=K, inject=True, iso=iso, span=span)
+    with running_on(libs[build]):
+        out, plain = _carry_tick(p, K=K, inject=True, iso=iso, span=span)
+    S, w, w_eps, (u_new, u_shift, finite), carried = plain
+    torch.testing.assert_close(out["S"], g1["S"], rtol=0.0, atol=0.0, equal_nan=True)
+    torch.testing.assert_close(out["S"], S, rtol=0.0, atol=0.0, equal_nan=True)
+    assert int(out["wp_adv"][0]) == int(carried) == int(g1["wp_adv"][0])
+    assert int(carried) > 0
+    if nan_eps:
+        assert torch.isnan(S[list(nan_eps)]).all() and torch.isfinite(S[:5]).all()
+        return
+    assert torch.isfinite(S).all()
+    _close("w", out["w"], w)
+    _close("w_eps", out["w_eps"], w_eps)
+    _close("u_new", out["u_new"], u_new)
+    _close("u_shift", out["u_shift"], u_shift)
+
+
+@pytest.mark.parametrize("build", [f"G{g}" for g in GROUPS])
+@pytest.mark.parametrize("case", ["span 8", "path end"])
+def test_fused_tick_carry_hash(libs, build, case):
+    """The carry with hash ε at K = 128, ISO on: the stored and the
+    drawn-again routes give the same bits; S and the furthest carried row
+    equal the plain version's on the kernel's stored ε, and the G = 1
+    build's; a second call repeats the first."""
+    kw = dict(CARRY_CASES[case])
+    span, x0 = kw.pop("span"), kw.pop("x0", None)
+    K = 128
+    p = _inputs(K, seed=6)
+    p["window"] = _carry_window(**kw)
+    if x0 is not None:
+        p["x0"] = f32(x0)
+    with running_on(libs["G1"]):
+        g1, _ = _carry_tick(p, K=K, inject=False, iso=True, span=span)
+    with running_on(libs[build]):
+        drawn, _ = _carry_tick(p, K=K, inject=False, iso=True, span=span)
+        stored, _ = _carry_tick(p, K=K, inject=False, iso=True, span=span, emit=True)
+        again, _ = _carry_tick(p, K=K, inject=False, iso=True, span=span)
+    for name in ("S", "w", "w_eps", "stats", "u_new", "u_shift", "finite", "wp_adv"):
+        assert torch.equal(stored[name], drawn[name]), name
+        assert torch.equal(again[name], drawn[name]), name
+        assert torch.equal(g1[name], drawn[name]), name
+    p["eps"] = stored["eps"].transpose(0, 1).contiguous()
+    with running_on(libs[build]):
+        _, (S, *_, carried) = _carry_tick(p, K=K, inject=True, iso=True, span=span)
+    torch.testing.assert_close(drawn["S"], S, rtol=0.0, atol=0.0)
+    assert int(drawn["wp_adv"][0]) == int(carried) > 0
+
+
 # the rule of the shipped build: lanes a sample by the launch's sample count
 RULE = {10240: 2, 16384: 2, 16385: 1, 32768: 1, 102400: 1}
 
@@ -579,6 +699,11 @@ REFUSED = {
     "tick k_blk": ("dmm_mppi_tick", {"k_blk": 100}),
     "tick T": ("dmm_mppi_tick", {"T": 1025}),
     "tick scratch": ("dmm_mppi_tick", {"scratch_floats": -1}),
+    "tick carry span": ("dmm_mppi_tick", {"carry_span": 6}),  # past the W = 5 rows
+    "tick carry no output": ("dmm_mppi_tick", {"carry_span": 3, "wp_adv": None}),
+    "tick carry blocked": ("dmm_mppi_tick", {"carry_span": 3, "block_offset": 1}),
+    "split carry": ("dmm_rollout_costs", {"carry_span": 3}),
+    "fleet carry": ("dmm_fleet_mppi_tick", {"carry_span": 3}),
     "fleet B": ("dmm_fleet_mppi_tick", {"B": 0}),
     "fleet eps_mode": ("dmm_fleet_mppi_tick", {"eps_mode": 1}),
     "fleet epilogue": ("dmm_fleet_mppi_tick", {"fuse_epilogue": 1}),

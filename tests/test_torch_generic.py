@@ -363,7 +363,9 @@ def _guard_setup(**cfg_kw):
 
 GUARDS = {
     "repeats": (dict(num_rollout_repeats=2), dict(), "num_rollout_repeats"),
-    "waypoint_carry_rollout": (dict(waypoint_carry="rollout"), dict(), "waypoint_carry"),
+    # the generic tick runs waypoint_carry="rollout" (tests/test_torch_waypoint_carry.py);
+    # an unknown mode raises
+    "waypoint_carry_rollout": (dict(waypoint_carry="rolling"), dict(), "waypoint_carry"),
     "polygon": ({}, dict(collision="polygon"), "polygon"),
     "gaussian_popcount": ({}, dict(gaussian="popcount"), "gaussian"),
     "time_varying_without_takes_t": (dict(time_varying_dynamics=True), dict(),
@@ -408,16 +410,18 @@ def test_sigma_factors_are_computed_once_per_params_object():
 
 
 def test_kernel_refuses_what_it_cannot_run():
-    """A lifted step, a time-varying step and the per-rollout carry have no
-    kernel: the check that guards the CUDA launch raises, naming the
-    built-in families; on CPU tensors a lifted step runs."""
+    """A lifted step and a time-varying step have no kernel: the check that
+    guards the CUDA launch raises, naming the built-in families; on CPU
+    tensors a lifted step runs. The split generic rollout has no per-rollout
+    carry (the tick has it, as in JAX): its binder raises."""
     lifted = ttile.lift_dynamics(lambda x, u: x)
     with pytest.raises(ValueError, match="four_wheel_torque"):
         kern.generic_tick.kernel_model(lifted, False)
     with pytest.raises(ValueError, match="step_takes_t"):
         kern.generic_tick.kernel_model(ttile.unicycle_tile(DT), True)
-    with pytest.raises(ValueError, match="rollout_carry"):
-        kern.generic_tick.kernel_model(ttile.unicycle_tile(DT), False, True)
+    tc, *_ = _guard_setup(waypoint_carry="rollout")
+    with pytest.raises(ValueError, match="waypoint_carry='rollout' is not implemented"):
+        tmppi.make_cuda_generic_rollout(tc, ttile.four_wheel_torque_tile(DT))
     assert kern.generic_tick.kernel_model(ttile.dynamic_bicycle_tile(DT), False) == 3
     with pytest.raises(ValueError, match="shared memory"):
         kern.generic_tick.check_staging(50, 3000, 4, 4, 2)

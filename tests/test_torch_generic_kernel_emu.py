@@ -33,7 +33,16 @@ elsewhere. The obstacles are placed from the rollouts' own end points, so
 that some rollouts hit and some do not. w, Σ w·ε, ρ, η,
 u_new and u_shift stay within ``chip_smoke.TOL`` of the plain versions; the
 tick's two hash-ε routes (ε stored, ε drawn again) are bit-equal, and a
-second call repeats the first. Skips without g++.
+second call repeats the first.
+
+The tick's ``rollout_carry`` (waypoint_carry="rollout") runs through every
+G build for every family, ε injected and drawn, on a 40-row carry window
+searched a few rows a step: wrap-yaw, n_track 2, a window whose last rows
+repeat the path's end, rows that tie exactly, a NaN row inside the span,
+and samples whose state goes NaN. S and the furthest carried row equal the
+G = 1 build's, and the plain version's (bit for bit outside the dynamic
+bicycle, whose sinf is the C library's: S within TOL["S"] there). Skips
+without g++.
 """
 
 from __future__ import annotations
@@ -454,6 +463,113 @@ def test_argument_block_size(libs):
     assert libs["shipped"].dmm_generic_args_size() == ctypes.sizeof(_build.DmmGenericArgs)
 
 
+# the carry: (family, span, the carry window's options, the inputs' options,
+# the call's options). Rows [start, start + 40) of a 60-point curve, the
+# last rows repeated past the path's end; "NaN state": ε NaN for samples
+# 5 and 30 from step 2 on
+CARRY_CASES = {
+    "unicycle span 8": ("unicycle", 8, {}, {}, {}),
+    "unicycle span 3 LAST": ("unicycle", 3, {}, {}, dict(last_only=True)),
+    "kinematic_bicycle wrap span 5": ("kinematic_bicycle", 5, {}, {}, dict(wrap_yaw=True)),
+    "four_wheel_torque span 8": ("four_wheel_torque", 8, {}, {}, {}),
+    "four_wheel_torque n_track 2": ("four_wheel_torque", 8, {}, dict(n_track=2), {}),
+    "dynamic_bicycle span 8": ("dynamic_bicycle", 8, {}, {}, {}),
+    "unicycle path end": ("unicycle", 8, dict(start=50), dict(x0=[2.6, 0.45, 0.3]), {}),
+    "four_wheel_torque twins": ("four_wheel_torque", 8, dict(twin=4), {}, {}),
+    "unicycle NaN row 5": ("unicycle", 8, dict(nan_row=5), {}, {}),
+    "four_wheel_torque NaN state": ("four_wheel_torque", 8, {}, dict(nan_eps=(5, 30)), {}),
+}
+
+
+def _carry_window(n_track, start=0, twin=None, nan_row=None, rows=40, n=60):
+    xs = np.linspace(0.0, 3.0, n)
+    cols = [xs, 0.5 * np.sin(xs / 2.0), np.full(n, 0.3), np.full(n, 0.9), np.full(n, 0.1)]
+    path = np.stack(cols[:n_track], 1)
+    if twin is not None:  # rows twin apart share their (x, y): exact ties
+        path[twin::2 * twin, :2] = path[0:-twin:2 * twin, :2][:len(path[twin::2 * twin])]
+    window = path[np.minimum(start + np.arange(rows), n - 1)].copy()
+    if nan_row is not None:
+        window[nan_row] = np.nan
+    return f32(window)
+
+
+def _carry_case(case, K, seed):
+    family, span, win, opts, call = CARRY_CASES[case]
+    opts = dict(opts)
+    x0, nan_eps = opts.pop("x0", None), opts.pop("nan_eps", ())
+    p = _inputs(family, K, seed=seed, **opts)
+    p["window"] = _carry_window(p["stage_w"].shape[0], **win)
+    if x0 is not None:
+        p["x0"] = f32(x0[:FAMILIES[family][0]] + [0.9, 0.1][:FAMILIES[family][0] - 3])
+    for k in nan_eps:
+        p["eps"][k, 2:] = float("nan")
+    return p, _call_kw(family, call, p), span, nan_eps
+
+
+def _carry_tick(p, kw, span, *, K, inject, emit=False):
+    T_ = p["u"].shape[0]
+    return gt.launch_generic_tick(
+        seed=torch.tensor([SEED]), chol_sigma=p["chol_sigma"], inv_temperature=1.0 / 0.8,
+        filter_t=_filter_t(T_), eps=p["eps"] if inject else None, emit_eps=emit,
+        carry_W=span, **{k: p[k] for k in ROLL}, **dict(kw, T=T_, K=K))
+
+
+def _carry_plain(p, kw, span, eps, K):
+    T_ = p["u"].shape[0]
+    args = dict(kw, T=T_, K=K)
+    return gt.generic_mppi_tick_plain(
+        None, *(p[k] for k in ROLL[:2]), p["chol_sigma"], *(p[k] for k in ROLL[2:]),
+        args.pop("dt"), args.pop("n_exploit"), 1.0 / 0.8, eps=eps.contiguous(),
+        filter_t=_filter_t(T_), fuse_epilogue=True, rollout_carry=True, carry_W=span, **args)
+
+
+def _check_carry(case, out, plain, g1):
+    S, *_, carried = plain
+    torch.testing.assert_close(out["S"], g1["S"], rtol=0.0, atol=0.0, equal_nan=True)
+    assert torch.equal(out["wp_adv"], g1["wp_adv"])
+    if case.startswith("dynamic_bicycle"):
+        _close("S", out["S"], S)
+    else:
+        torch.testing.assert_close(out["S"], S, rtol=0.0, atol=0.0, equal_nan=True)
+        assert int(out["wp_adv"][0]) == int(carried)
+    assert int(carried) > 0
+
+
+@pytest.mark.parametrize("build", [f"G{g}" for g in GROUPS])
+@pytest.mark.parametrize("case", list(CARRY_CASES))
+def test_fused_tick_carry_injected(libs, build, case):
+    p, kw, span, nan_eps = _carry_case(case, K_SPLIT, seed=5)
+    with running_on(libs["G1"]):
+        g1 = _carry_tick(p, kw, span, K=K_SPLIT, inject=True)
+    with running_on(libs[build]):
+        out = _carry_tick(p, kw, span, K=K_SPLIT, inject=True)
+    plain = _carry_plain(p, kw, span, p["eps"], K_SPLIT)
+    _check_carry(case, out, plain, g1)
+    if nan_eps:
+        assert torch.isnan(plain[0][list(nan_eps)]).all() and torch.isfinite(plain[0][:5]).all()
+
+
+@pytest.mark.parametrize("build", [f"G{g}" for g in GROUPS])
+@pytest.mark.parametrize("case", ["unicycle span 8", "four_wheel_torque span 8",
+                                  "unicycle path end"])
+def test_fused_tick_carry_hash(libs, build, case):
+    """The carry with hash ε at K = 128: the stored and drawn-again routes
+    and a second call give the same bits, the G = 1 build's too; S and the
+    furthest carried row equal the plain version's on the stored ε."""
+    p, kw, span, _ = _carry_case(case, 128, seed=6)
+    with running_on(libs["G1"]):
+        g1 = _carry_tick(p, kw, span, K=128, inject=False)
+    with running_on(libs[build]):
+        drawn = _carry_tick(p, kw, span, K=128, inject=False)
+        stored = _carry_tick(p, kw, span, K=128, inject=False, emit=True)
+        again = _carry_tick(p, kw, span, K=128, inject=False)
+    for name in ("S", "w", "w_eps", "stats", "u_new", "u_shift", "finite", "wp_adv"):
+        assert torch.equal(stored[name], drawn[name]), name
+        assert torch.equal(again[name], drawn[name]), name
+    _check_carry(case, drawn, _carry_plain(p, kw, span, stored["eps"].transpose(0, 1), 128),
+                 g1)
+
+
 # fields of a valid argument block that a C entry must refuse. The split
 # rollout: no sample, no step, an empty window, n_track below 2 or past nx,
 # a negative obstacle count, a window too long to stage in shared memory,
@@ -475,6 +591,9 @@ REFUSED = {
     "tick scratch": ("dmm_generic_tick", {"scratch_floats": -1}),
     "tick filter": ("dmm_generic_tick", {"filter_t": None}),
     "tick model": ("dmm_generic_tick", {"model": 4}),
+    "tick carry span": ("dmm_generic_tick", {"carry_span": 21}),  # past the W = 20 rows
+    "tick carry no output": ("dmm_generic_tick", {"carry_span": 3, "wp_adv": None}),
+    "split carry": ("dmm_generic_rollout_costs", {"carry_span": 3}),
 }
 
 

@@ -228,7 +228,10 @@ def _flag(**cfg_kw):
 
 
 GUARDS = {
-    "waypoint_carry_rollout": (dict(waypoint_carry="rollout"), dict(fused_tick=True), "waypoint_carry"),
+    # the K-blocked route has no carry (the single-block tick runs it:
+    # tests/test_torch_waypoint_carry.py)
+    "waypoint_carry_rollout": (dict(waypoint_carry="rollout", num_samples=102400),
+                               dict(fused_tick=True), "waypoint_carry"),
     "lean": ({}, dict(fused_tick=True, lean=True), "lean"),
     "fold_anchor": ({}, dict(fused_tick=True, fold_anchor=True), "fold_anchor"),
     "sincos_poly": ({}, dict(fused_tick=True, sincos="poly"), "sincos"),

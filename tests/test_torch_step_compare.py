@@ -107,3 +107,54 @@ def test_step_line_on_one_device_is_exact(resnet_batch, name):
     for key in ("mse_rel_err", "grad_rel_err", "param_rel_err", "branch_margin"):
         assert line[key] == 0.0, key
     assert line["branches_differ"] == 0
+
+
+def _line(direct, card_f64, cpu_f64, margin=0.0):
+    keys = cs.STEP_ERRORS
+    return {**dict(zip(keys, direct)), "branch_margin": margin,
+            "f64": {"card": dict(zip(keys, card_f64)), "cpu": dict(zip(keys, cpu_f64))}}
+
+
+STEP_OK_CASES = {
+    # every error within the limit against the CPU's float32 step
+    "agrees with the CPU": (_line((1e-6, 4e-5, 1e-6), (1e-6, 9e-5, 1e-6), (1e-6, 1e-5, 1e-6)),
+                            True),
+    # past it, but no further from float64 than the CPU's float32 step, which
+    # float32 cannot bring within the limit on this minibatch
+    "as exact as the CPU": (_line((1e-6, 4.6e-4, 1e-6), (1e-6, 2.1e-4, 1e-6),
+                                  (1e-6, 3.4e-4, 1e-6)), True),
+    "within the limit of float64": (_line((1e-6, 5.3e-5, 1e-6), (1e-6, 3.0e-5, 1e-6),
+                                          (1e-6, 2.7e-5, 1e-6)), True),
+    # past it against the CPU and further from float64 than the CPU is
+    "further than the CPU": (_line((1e-6, 9e-5, 1e-6), (1e-6, 9.6e-5, 1e-6),
+                                   (1e-6, 6.3e-5, 1e-6)), False),
+    "past it, the CPU exact": (_line((1e-6, 6e-5, 1e-6), (1e-6, 6e-5, 1e-6),
+                                     (1e-6, 1e-6, 1e-6)), False),
+    # a branch taken far from zero fails whatever the errors
+    "branch far from zero": (_line((0.0, 0.0, 0.0), (0.0, 0.0, 0.0), (0.0, 0.0, 0.0),
+                                   margin=1e-3), False),
+}
+
+
+@pytest.mark.parametrize("case", list(STEP_OK_CASES))
+def test_step_ok_rule(case):
+    """``step_ok``: the card's step against the CPU's float32 step at the
+    limit, or, where float32 cannot resolve the step to the limit, no
+    further from the float64 step than the CPU's float32 step is (the
+    figures of the cases are measured ones, tools/step_compare_spread.py)."""
+    line, want = STEP_OK_CASES[case]
+    assert cs.step_ok(line, cs.STEP_RTOL["resnet18"]) is want
+
+
+def test_step_line_reports_the_float64_step(resnet_batch):
+    """On one device the card's and the CPU's float32 steps are the same
+    step: both stand as far from the float64 step, within float32 rounding
+    of it."""
+    net, x, y = resnet_batch
+    opt = ttr.make_optimizer(net, ttr.TrainConfig(learning_rate=1e-3))
+    ttr.make_train_step(net, opt)(x, y)
+    line = cs.step_line("resnet18", net, opt.state_dict(), ttr.TrainConfig(learning_rate=1e-3),
+                        x, y)
+    assert line["f64"]["card"] == line["f64"]["cpu"]
+    assert 0.0 < line["f64"]["cpu"]["grad_rel_err"] < 1e-4
+

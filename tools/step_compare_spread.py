@@ -13,9 +13,17 @@ of every series (series 0's is phase 12's), and the first minibatches of
 the run's first epoch. One ``{"step_spread": ...}`` line a compare, then a
 ``{"step_spread_summary": ...}`` line: the largest error on the card's
 branches, on the CPU's own, and the least with TF32 on, and how many of
-each pass the limit. Run from anywhere:
+each pass the limit. Each compare's line names the gradient tensor with the
+largest relative error (``grad_worst_tensor``, its error, its absolute error
+and the reference's largest magnitude and norm); every tensor's figures go
+to ``--out``, one line a compare; a last ``{"step_spread_tensor_summary":
+...}`` line counts which tensor set each compare's error and gives each
+tensor's largest and median error over the compares. Each compare also
+holds the card's and the CPU's float32 steps against the CPU's float64 step
+(``f64``), and two ``{"step_spread_f64": ...}`` lines sum that up for the
+series batches and the epoch minibatches. Run from anywhere:
 
-    python tools/step_compare_spread.py [--seeds 0 0 0 1 2] [--minibatches 4]
+    python tools/step_compare_spread.py [--seeds 0 0 0 1 2] [--minibatches 4] [--out PATH]
 
 Prints the card's name and power limit first; exits non-zero without a card.
 """
@@ -23,6 +31,7 @@ Prints the card's name and power limit first; exits non-zero without a card.
 from __future__ import annotations
 
 import argparse
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -38,6 +47,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 0, 0, 1, 2])
     ap.add_argument("--minibatches", type=int, default=4)
+    ap.add_argument("--out", default="step_spread_tensors.jsonl",
+                    help="where each compare's per-tensor gradient errors go, one line a compare")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("step_compare_spread: needs an NVIDIA GPU", file=sys.stderr)
@@ -57,7 +68,9 @@ def main() -> int:
     orders = cs.training._epoch_orders(n_train, cfg.seed, cfg.num_epochs, dev)
     feats = torch.cat([ep.states, ep.controls], -1)
     rtol = cs.STEP_RTOL["resnet18"]
-    lines = []
+    lines, tensors = [], []
+    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+    tensor_log = open(args.out, "w")
     for run, seed in enumerate(args.seeds):
         net = cs.new_resnet(dev, seed)
         state, _ = cs.training._run(net, cs.make_optimizer(net, cfg), ep.states, ep.controls,
@@ -70,10 +83,17 @@ def main() -> int:
         for label, rows in batches.items():
             x = state.in_scaler.transform(feats[rows])[:, None, :]
             y = state.out_scaler.transform(ep.errors[rows])
-            line = cs.step_line("resnet18", net, state.opt_state, cfg, x, y)
-            line = {"step_spread": label, "run": run, "seed": seed, **line}
+            line = cs.step_line("resnet18", net, state.opt_state, cfg, x, y, per_tensor=True)
+            by_tensor = line.pop("grad_by_tensor")
+            worst_k = max(by_tensor, key=lambda k: by_tensor[k]["rel_err"])
+            line = {"step_spread": label, "run": run, "seed": seed, **line,
+                    "grad_worst_tensor": worst_k, **{f"grad_worst_{k}": v
+                                                     for k, v in by_tensor[worst_k].items()}}
             cs.emit(line)
+            tensor_log.write(json.dumps({"step_spread_tensors": label, "run": run,
+                                         "grad_by_tensor": by_tensor}) + "\n")
             lines.append(line)
+            tensors.append(by_tensor)
 
     def worst(get):
         return max(get(ln) for ln in lines)
@@ -82,7 +102,8 @@ def main() -> int:
     matched = [max(ln["mse_rel_err"], ln["grad_rel_err"], ln["param_rel_err"]) for ln in lines]
     tf32 = [max(v for k, v in ln["tf32"].items() if k.endswith("rel_err")) for ln in lines]
     cs.emit({"step_spread_summary": "resnet18", "card": card, "compares": len(lines),
-             "rtol": rtol, "card_branches_max_err": max(matched),
+             "rtol": rtol, "step_ok": sum(ln["ok"] for ln in lines),
+             "card_branches_max_err": max(matched),
              "card_branches_over_rtol": sum(e > rtol for e in matched),
              "branch_margin_max": worst(lambda ln: ln["branch_margin"]),
              "branches_differ_max": worst(lambda ln: ln["branches_differ"]),
@@ -94,6 +115,31 @@ def main() -> int:
                                     if ln["step_spread"].startswith("series 0 ")],
              "smoke_batch_own_errors": [o for o, ln in zip(own, lines)
                                         if ln["step_spread"].startswith("series 0 ")]})
+    names = list(tensors[0])
+    per = {k: [t[k]["rel_err"] for t in tensors] for k in names}
+    kinds = {"series first 128 rows": [ln for ln in lines if ln["step_spread"].startswith("series")],
+             "epoch minibatches": [ln for ln in lines if ln["step_spread"].startswith("epoch")]}
+    for kind, group in kinds.items():
+        cs.emit({"step_spread_f64": kind, "card": card, "compares": len(group),
+                 "card_vs_cpu_max": max(ln["grad_rel_err"] for ln in group),
+                 "card_vs_cpu_over_rtol": sum(ln["grad_rel_err"] > rtol for ln in group),
+                 "card_vs_f64_max": max(ln["f64"]["card"]["grad_rel_err"] for ln in group),
+                 "cpu_vs_f64_max": max(ln["f64"]["cpu"]["grad_rel_err"] for ln in group),
+                 "cpu_vs_f64_over_rtol": sum(ln["f64"]["cpu"]["grad_rel_err"] > rtol
+                                             for ln in group),
+                 "card_closer_to_f64_than_cpu": sum(
+                     ln["f64"]["card"]["grad_rel_err"] <= ln["f64"]["cpu"]["grad_rel_err"]
+                     for ln in group)})
+    cs.emit({"step_spread_tensor_summary": "resnet18", "card": card, "compares": len(lines),
+             "worst_tensor_counts": {k: sum(ln["grad_worst_tensor"] == k for ln in lines)
+                                     for k in names if any(ln["grad_worst_tensor"] == k
+                                                           for ln in lines)},
+             "tensors_over_rtol": {k: sum(e > rtol for e in v) for k, v in per.items()
+                                   if any(e > rtol for e in v)},
+             "max_rel_err_by_tensor": {k: max(v) for k, v in per.items()},
+             "median_rel_err_by_tensor": {k: sorted(v)[len(v) // 2] for k, v in per.items()},
+             "min_ref_max_by_tensor": {k: min(t[k]["ref_max"] for t in tensors) for k in names}})
+    tensor_log.close()
     return 0
 
 
