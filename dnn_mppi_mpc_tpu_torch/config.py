@@ -117,8 +117,10 @@ class MPPIParams:
     inside the rollout; ``stage_weight``/``terminal_weight`` are diagonal
     tracking weights; ``ref_path`` is the (P, d) waypoint table;
     ``obstacles`` (n, 3) are circles (x, y, r) and ``obstacle_velocities``
-    (n, 2) make them drift during the rollout; ``control_weight`` (dim_u,) adds
-    Σⱼ rⱼ·vⱼ² of the clamped action to each stage cost.
+    (n, 2) make them drift during the rollout; ``model_params`` is an opaque
+    object for a user's dynamics (the solvers carry it and never read it);
+    ``control_weight`` (dim_u,) adds Σⱼ rⱼ·vⱼ² of the clamped action to each
+    stage cost.
     """
 
     sigma: torch.Tensor
@@ -129,17 +131,30 @@ class MPPIParams:
     ref_path: torch.Tensor
     obstacles: Optional[torch.Tensor] = None
     obstacle_velocities: Optional[torch.Tensor] = None
+    model_params: Optional[object] = None
     control_weight: Optional[torch.Tensor] = None
 
     def to(self, device) -> "MPPIParams":
-        """A copy with every tensor moved to ``device``."""
-        return MPPIParams(
-            **{
-                f.name: None if getattr(self, f.name) is None
-                else getattr(self, f.name).to(device)
-                for f in dataclasses.fields(self)
-            }
-        )
+        """A copy with every tensor moved to ``device`` (``model_params``'
+        tensor leaves too; its other leaves as they are)."""
+        return MPPIParams(**{
+            f.name: _map_leaves(getattr(self, f.name),
+                                lambda a: a.to(device) if isinstance(a, torch.Tensor) else a)
+            for f in dataclasses.fields(self)
+        })
+
+
+def _map_leaves(tree, fn):
+    """``fn`` over the leaves of nested dicts, lists and tuples (named tuples
+    keep their type); None stays None."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return type(tree)((k, _map_leaves(v, fn)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        leaves = [_map_leaves(v, fn) for v in tree]
+        return type(tree)(*leaves) if hasattr(tree, "_fields") else type(tree)(leaves)
+    return fn(tree)
 
 
 QP_BACKENDS = ("torch", "kernel")
@@ -222,15 +237,23 @@ def params_from_numpy(
     """Build :class:`MPPIParams` on ``device`` from the JAX package's
     ``MPPIParams`` leaves given as numpy arrays (in their field order). A
     fleet's per-member leaves keep their leading member axis: ``ref_path``
-    (B, P, d), ``obstacles`` (B, n, 3), ``obstacle_velocities`` (B, n, 2)."""
-    if model_params is not None:
-        raise ValueError("model_params (learned/custom dynamics) is not ported yet")
+    (B, P, d), ``obstacles`` (B, n, 3), ``obstacle_velocities`` (B, n, 2).
+
+    ``model_params`` is carried through as JAX's ``unify_float_dtype`` does:
+    its numpy leaves (through dicts, lists and tuples) go to ``device``,
+    floating ones as float32, and its other leaves (Python scalars, any
+    object) pass as they are."""
     device = resolve_device(device)
 
     def f32(a):
         if a is None:
             return None
         return torch.tensor(np.asarray(a, np.float32), device=device)
+
+    def leaf(a):
+        if not isinstance(a, np.ndarray):
+            return a
+        return f32(a) if np.issubdtype(a.dtype, np.floating) else torch.as_tensor(a).to(device)
 
     return MPPIParams(
         sigma=f32(sigma),
@@ -241,6 +264,7 @@ def params_from_numpy(
         ref_path=f32(ref_path),
         obstacles=f32(obstacles),
         obstacle_velocities=f32(obstacle_velocities),
+        model_params=_map_leaves(model_params, leaf),
         control_weight=f32(control_weight),
     )
 

@@ -1,6 +1,6 @@
 """Closed loops, plants, obstacles, sensors and the scene rasterizer
-(counterpart of ``dnn_mppi_mpc_tpu/envs``; its PyBullet bridge is not
-ported)."""
+(counterpart of ``dnn_mppi_mpc_tpu/envs``; the PyBullet bridge is
+``envs.bullet_bridge``, imported on its own as in JAX)."""
 
 from .closed_loop import Episode, collect_residual_dataset, run_closed_loop
 from .kinematics import ackermann_wheel_speeds, diff_drive_wheel_speeds

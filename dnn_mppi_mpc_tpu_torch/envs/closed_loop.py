@@ -9,9 +9,13 @@ tensors: controller tick → plant step → log, with nothing in it that waits
 for the card, so the host enqueues tick after tick while the card works.
 States, controls and errors are stacked on the device at the end.
 
-The JAX ``vmap`` over data-collection series has no counterpart yet: the
-series run one after another (batching them as fleet members is ROADMAP
-A7).
+The JAX ``vmap`` over data-collection series has its counterpart in the
+fleet tick: where every series' controller is an :class:`MPPIController`
+over one solver with a fleet step (``MPPISolver.fleet_step``), the
+series of a collection run as the members of one fleet step, one
+``fleet_mppi_tick`` launch a tick for all of them (see
+:func:`collect_residual_dataset` for the rule). Any other controller runs
+its series one after another.
 """
 
 from __future__ import annotations
@@ -96,17 +100,91 @@ def series_generators(seed: int, series: int, device) -> Tuple[torch.Generator, 
     return tuple(torch.Generator(device=device).manual_seed(int(w)) for w in words)
 
 
+_SHARED_LEAVES = ("sigma", "stage_weight", "terminal_weight", "u_min", "u_max")
+_MEMBER_LEAVES = ("ref_path", "obstacles", "obstacle_velocities")
+
+
+def _same(a: Optional[torch.Tensor], b: Optional[torch.Tensor]) -> bool:
+    """``a`` and ``b`` are one tensor, or equal (a read that waits for the
+    card, made once before the first tick), or both None."""
+    if a is None or b is None:
+        return a is b
+    return a is b or (a.shape == b.shape and a.dtype == b.dtype and bool(torch.equal(a, b)))
+
+
+def _fleet_plan(controllers: list, states: list):
+    """The fleet step and its stacked (params, states) when the series can
+    run as fleet members (:func:`collect_residual_dataset`'s rule), else
+    None."""
+    from ..solvers.mppi import MPPISolver, MPPIState
+
+    first = controllers[0]
+    if not all(type(c) is MPPIController and c.solver is first.solver for c in controllers):
+        return None
+    if not (isinstance(first.solver, MPPISolver)
+            and all(isinstance(st, MPPIState) for st in states)):
+        return None
+    step = first.solver.fleet_step()
+    if step is None:
+        return None
+    params = [c.params for c in controllers]
+    p0 = params[0]
+    if any(p.control_weight is not None for p in params):
+        return None
+    if not all(_same(getattr(p, name), getattr(p0, name))
+               for p in params for name in _SHARED_LEAVES):
+        return None
+    for name in _MEMBER_LEAVES:
+        leaves = [getattr(p, name) for p in params]
+        if any(a is None for a in leaves) and not all(a is None for a in leaves):
+            return None
+        if leaves[0] is not None and any(a.shape != leaves[0].shape for a in leaves):
+            return None
+    fleet_params = dataclasses.replace(p0, **{
+        name: None if getattr(p0, name) is None
+        else torch.stack([getattr(p, name) for p in params])
+        for name in _MEMBER_LEAVES})
+    fleet_state = MPPIState(*(torch.stack([getattr(st, f) for st in states])
+                              for f in ("u_prev", "waypoint_idx", "key")))
+    return step, fleet_params, fleet_state
+
+
+def _run_fleet(step, params, states, x0s, plant_step, nominal_step, ticks: int) -> Episode:
+    """``ticks`` fleet ticks of the B series (leading axis of ``x0s``),
+    the plant and the nominal step one ``vmap`` over the (B, nx) states; the
+    episode is series-major, (B·ticks, ·)."""
+    transition = torch.func.vmap(lambda x, u: (plant_step(x, u), nominal_step(x, u)))
+    x, xs, us, errs = x0s, [], [], []
+    for _ in range(ticks):
+        u, states, _ = step(params, states, x)
+        x_next, x_nominal = transition(x, u)
+        xs.append(x)
+        us.append(u)
+        errs.append(x_next - x_nominal)
+        x = x_next
+    return Episode(*(torch.stack(seq, dim=1).flatten(0, 1) for seq in (xs, us, errs)))
+
+
 def _collect(controller_factory, plant_step, nominal_step, x0_sampler, seed, series,
              ticks_per_series, device) -> Episode:
-    """The series ``series`` (a range) one after another, flattened."""
-    parts = []
+    """The series ``series`` (a range), flattened series-major: as the
+    members of one fleet step where the rule allows it, else one after
+    another."""
+    controllers, states, x0s = [], [], []
     for i in series:
         g_ctrl, g_x0 = series_generators(seed, i, device)
         controller, cs0 = controller_factory(g_ctrl)
-        x0 = x0_sampler(g_x0)
-        ep, _ = run_closed_loop(controller, plant_step, cs0, x0, ticks_per_series,
-                                nominal_step=nominal_step)
-        parts.append(ep)
+        controllers.append(controller)
+        states.append(cs0)
+        x0s.append(x0_sampler(g_x0))
+    plan = _fleet_plan(controllers, states)
+    if plan is not None:
+        step, params, fleet_state = plan
+        return _run_fleet(step, params, fleet_state, torch.stack(x0s), plant_step, nominal_step,
+                          ticks_per_series)
+    parts = [run_closed_loop(c, plant_step, cs0, x0, ticks_per_series,
+                             nominal_step=nominal_step)[0]
+             for c, cs0, x0 in zip(controllers, states, x0s)]
     # (B, T, ·) flattened to (B·T, ·); states drop each series' last row
     return Episode(
         states=torch.cat([p.states[:-1] for p in parts]),
@@ -133,8 +211,33 @@ def collect_residual_dataset(
     The JAX signature, with a seed in place of the key:
     ``controller_factory(generator) → (controller, ctrl_state0)`` and
     ``x0_sampler(generator) → x0`` each take a ``torch.Generator`` on
-    ``device`` seeded from ``(seed, series)`` (:func:`series_generators`).
-    The series run one after another on the card."""
+    ``device`` seeded from ``(seed, series)`` (:func:`series_generators`);
+    every series' controller and x0 are made before the first tick.
+
+    The batched route, the counterpart of JAX's ``vmap`` over series: the
+    series run as the B members of one ``make_fleet_fused_mppi_step`` (one
+    ``fleet_mppi_tick`` launch a tick for all of them; the plant and the
+    nominal step through ``torch.func.vmap`` over the (B, nx) states) when
+
+    * every controller is an :class:`MPPIController` (what
+      :func:`mppi_controller` returns) over one ``MPPISolver`` and its
+      initial state an ``MPPIState``,
+    * that solver has a fleet step (:meth:`MPPISolver.fleet_step`: its tick
+      is the single-block diff-drive tick with ``waypoint_carry="tick"``),
+      and
+    * the series' params share ``sigma``, the weights, ``u_min`` and
+      ``u_max`` (one tensor, or equal), have no ``control_weight``, and
+      their ``ref_path`` (and ``obstacles``, ``obstacle_velocities`` where
+      present) stack on a member axis.
+
+    The fleet step is built once a call. Member b draws the hash stream of
+    its own carried key, which is the single-block tick's stream: S of a
+    tick is the sequential route's bit for bit given equal inputs; its tail
+    (filter, update, shift) runs in PyTorch, not in the kernel's epilogue,
+    so u0 may differ by rounding. Any other controller (a plain function,
+    another route, shared leaves that differ) runs its series one after
+    another.
+    Nothing catches a failure of the fleet route to fall back."""
     device = resolve_device(device)
     return _collect(controller_factory, plant_step, nominal_step, x0_sampler, seed,
                     range(num_series), ticks_per_series, device)
@@ -191,16 +294,24 @@ def collect_residual_dataset_resumable(
     return Episode(*(torch.cat([getattr(p, k) for p in parts]) for k in Episode._fields))
 
 
-def mppi_controller(solver, params) -> Controller:
-    """An ``MPPISolver`` as the ``(ctrl_state, x) → (u, ctrl_state)``
-    controller :func:`run_closed_loop` takes (``solver.step``; the state is
-    the ``MPPIState``)."""
+class MPPIController:
+    """An ``MPPISolver`` (or anything with its ``step``) and its params as
+    the ``(ctrl_state, x) → (u, ctrl_state)`` controller
+    :func:`run_closed_loop` takes; it keeps ``solver`` and ``params``, which
+    :func:`collect_residual_dataset` reads to run series as a fleet."""
 
-    def controller(cs, x):
-        u0, cs, _ = solver.step(params, cs, x)
+    def __init__(self, solver, params) -> None:
+        self.solver, self.params = solver, params
+
+    def __call__(self, cs, x):
+        u0, cs, _ = self.solver.step(self.params, cs, x)
         return u0, cs
 
-    return controller
+
+def mppi_controller(solver, params) -> MPPIController:
+    """An ``MPPISolver`` as a controller (``solver.step``; the state is the
+    ``MPPIState``)."""
+    return MPPIController(solver, params)
 
 
 def nmpc_controller(solver, params) -> Controller:
@@ -288,6 +399,7 @@ def recovery_init(inner_state) -> RecoveryState:
 
 __all__ = [
     "Episode",
+    "MPPIController",
     "RecoveryState",
     "collect_residual_dataset",
     "collect_residual_dataset_resumable",

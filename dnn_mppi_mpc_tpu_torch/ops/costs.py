@@ -3,6 +3,7 @@
 
 from __future__ import annotations
 
+import math
 from functools import lru_cache
 
 import torch
@@ -10,6 +11,33 @@ import torch
 # Large enough to dominate any tracking cost after the softmax, small enough
 # that T·penalty stays far from the float32 maximum.
 COLLISION_PENALTY = 1.0e7
+
+
+def quadratic_tracking_cost(
+    x: torch.Tensor, ref: torch.Tensor, weight: torch.Tensor, wrap_yaw: bool = False
+) -> torch.Tensor:
+    """Σ_i w_i (x_i − ref_i)² over the last axis; with ``wrap_yaw`` the third
+    state is wrapped to [0, 2π) before the difference."""
+    if wrap_yaw:
+        yaw = torch.remainder(x[..., 2] + 2.0 * math.pi, 2.0 * math.pi)
+        x = torch.cat([x[..., :2], yaw[..., None], x[..., 3:]], dim=-1)
+    err = x - ref
+    return (weight * err * err).sum(-1)
+
+
+def control_energy_cost(
+    u_nominal: torch.Tensor, v: torch.Tensor, sigma_inv: torch.Tensor, gamma: float
+) -> torch.Tensor:
+    """The information-theoretic control cost γ·uᵀΣ⁻¹v over the last axis,
+    written out elementwise (no matrix product, so no TF32 on the card)."""
+    a = (u_nominal[..., :, None] * sigma_inv).sum(-2)  # uᵀΣ⁻¹
+    return gamma * (a * v).sum(-1)
+
+
+def einsum_quadratic_cost(x: torch.Tensor, ref: torch.Tensor, Q_diag: torch.Tensor) -> torch.Tensor:
+    """(x − ref)ᵀ Q (x − ref) with diagonal Q, over the last axis."""
+    err = x - ref
+    return (err * Q_diag * err).sum(-1)
 
 
 def circle_robot_collision(
@@ -77,6 +105,9 @@ __all__ = [
     "VEHICLE_OUTLINE_X",
     "VEHICLE_OUTLINE_Y",
     "circle_robot_collision",
+    "control_energy_cost",
+    "einsum_quadratic_cost",
+    "quadratic_tracking_cost",
     "soft_obstacle_cost",
     "vehicle_polygon_collision",
 ]

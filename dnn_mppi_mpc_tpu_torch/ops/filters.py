@@ -4,6 +4,9 @@ Counterpart of ``dnn_mppi_mpc_tpu/ops/filters.py``. Every filter is linear
 in the sequence, so ``filter(x) == F @ x`` with F built once on the host in
 float64 numpy (:func:`filter_matrix`, same construction as the JAX
 package's); :func:`apply_filter` is then one float32 matmul with TF32 off.
+The JAX package's public helpers :func:`moving_average_edge`,
+:func:`moving_average_padded` and :func:`savgol_filter` are that one
+product on a (T, d) sequence.
 """
 
 from __future__ import annotations
@@ -119,5 +122,22 @@ def apply_filter(x: torch.Tensor, kind, window: int, polyorder: int = 3) -> torc
     return matmul_f32(F, x)
 
 
-__all__ = ["filter_matrix", "filter_tensor", "full_f32", "savgol_coefficients", "apply_filter",
-           "matmul_f32"]
+def moving_average_edge(x: torch.Tensor, window_size: int) -> torch.Tensor:
+    """Moving average with the reference's edge rescaling, along axis 0."""
+    return apply_filter(x, SmoothingFilter.MOVING_AVERAGE_EDGE, window_size)
+
+
+def moving_average_padded(x: torch.Tensor, window_size: int) -> torch.Tensor:
+    """Head/tail-slice padded moving average, along axis 0."""
+    return apply_filter(x, SmoothingFilter.MOVING_AVERAGE_PADDED, window_size)
+
+
+def savgol_filter(x: torch.Tensor, window_size: int, polyorder: int) -> torch.Tensor:
+    """Savitzky-Golay smoothing along axis 0 with scipy's ``mode='interp'``
+    edges; the window is clamped to T and made odd, the order below it."""
+    return apply_filter(x, SmoothingFilter.SAVGOL, window_size, polyorder)
+
+
+__all__ = ["apply_filter", "filter_matrix", "filter_tensor", "full_f32", "matmul_f32",
+           "moving_average_edge", "moving_average_padded", "savgol_coefficients",
+           "savgol_filter"]

@@ -12,14 +12,17 @@ group — counterpart of ``dnn_mppi_mpc_tpu/parallel/sharding.py``.
   phase 2 is ``weighted_noise_reduce``, which draws the same ε again on
   the K-blocked tick's grid of chunks × steps, from the weights m/η, and
   sums the chunks in chunk order. The (K, T, 2) noise tensor never exists.
+* :func:`make_batched_mppi_step` is the scan-path step over a batch of
+  scenarios, each with its own params, state and x0: rank i of n runs its
+  B/n scenarios as one ``torch.func.vmap`` of ``mppi_step``, with no
+  collectives.
 * :func:`make_sharded_mppi_fleet` gives each rank B/n members of a fleet,
-  with no collectives.
+  with no collectives (the fused fleet tick, or with ``fused=False`` the
+  batched scan-path step over the fleet's shared params).
 * :func:`make_sharded_nmpc_fleet` does the same for a fleet of NMPC
   problems: each rank solves its members with ``NMPCSolver.batched_solve``
   (with the kernel QP backend, one launch of the batched QP kernel per SQP
   iteration for the rank's members).
-
-The batched scan-path step is still to be ported.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from ..ops.sampling import small_cholesky
 from ..ops.waypoints import nearest_waypoint, waypoint_window
 from ..solvers.sqp import PARAM_NDIM, NMPCSolver, NMPCState, OCPParams
 from ..solvers.mppi import (
+    MPPIAux,
     MPPIState,
     StageCost,
     TerminalCost,
@@ -198,6 +202,98 @@ def make_sharded_fused_mppi_step(
 
 
 _MEMBER_LEAVES = ("ref_path", "obstacles", "obstacle_velocities")
+# MPPIParams' tensor fields (model_params is an opaque object)
+_PARAM_TENSORS = ("sigma", "stage_weight", "terminal_weight", "u_min", "u_max", "ref_path",
+                  "obstacles", "obstacle_velocities", "control_weight")
+
+
+def _batched_scan_step(cfg: MPPIConfig, dynamics_step: Callable, stage_cost: StageCost,
+                       terminal_cost: TerminalCost, device: torch.device,
+                       generator: torch.Generator) -> Callable:
+    """``run(params, states, x0s, eps=None)``: one ``torch.func.vmap`` of
+    ``mppi_step`` over all the scenarios it is given (the leading axis of
+    every tensor leaf); without ``eps`` each scenario's ε is drawn outside
+    the vmap from ``generator``, coloured by its own Σ."""
+    K, T, nu = cfg.num_samples, cfg.horizon, cfg.dim_u
+
+    def one(leaves, model_params, u_prev, waypoint_idx, key, x0, eps):
+        params = MPPIParams(**leaves, model_params=model_params)
+        u0, state, aux = mppi_step(cfg, dynamics_step, stage_cost, terminal_cost, params,
+                                   MPPIState(u_prev, waypoint_idx, key), x0, eps)
+        return u0, (state.u_prev, state.waypoint_idx, state.key), tuple(aux)
+
+    batched = torch.func.vmap(one, in_dims=(0, None, 0, 0, 0, 0, 0))
+
+    def run(params: MPPIParams, states: MPPIState, x0s: torch.Tensor,
+            eps: Optional[torch.Tensor] = None):
+        _on_device(device, u_prev=states.u_prev, x0s=x0s, ref_path=params.ref_path)
+        leaves = {name: getattr(params, name) for name in _PARAM_TENSORS
+                  if getattr(params, name) is not None}
+        if eps is None:
+            chol = torch.func.vmap(small_cholesky)(params.sigma.to(torch.float64))
+            z = torch.randn((x0s.shape[0], K, T, nu), generator=generator, dtype=torch.float64,
+                            device=device)
+            # z @ cholᵀ a scenario, written out elementwise (no TF32 path)
+            eps = (z.unsqueeze(-2) * chol[:, None, None]).sum(-1)
+        u0s, (u_prev, waypoint_idx, key), aux = batched(
+            leaves, params.model_params, states.u_prev, states.waypoint_idx, states.key, x0s,
+            eps.to(states.u_prev.dtype))
+        return u0s, MPPIState(u_prev, waypoint_idx, key), MPPIAux(*aux)
+
+    return run
+
+
+def _rank_generator(group, device, seed: int) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(seed + dist.get_rank(group))
+
+
+def make_batched_mppi_step(
+    cfg: MPPIConfig,
+    dynamics_step: Callable,
+    stage_cost: StageCost,
+    terminal_cost: TerminalCost,
+    group: Optional[dist.ProcessGroup] = None,
+    device="cuda",
+    seed: int = 0,
+) -> Callable:
+    """The scan-path MPPI step over a batch of B scenarios, split over the
+    ranks of ``group`` (the default group when None; the JAX mesh axis):
+    rank i runs scenarios [i·B/n, (i+1)·B/n), with no collectives.
+
+    ``step(params, states, x0s, noise=None) -> (u0s, states, auxs)``: every
+    tensor leaf of ``params`` carries the leading batch axis (JAX's
+    ``in_axes=0``; ``model_params`` goes to every scenario as it is),
+    ``states`` is a fleet :class:`MPPIState` and ``x0s`` is (B, dim_x), all
+    on ``device`` (default the card). A tick is one batched computation,
+    ``torch.func.vmap`` of ``mppi_step`` over the rank's scenarios, not a
+    loop over them. Injected ``noise`` is (B, K, T, dim_u) (the rank takes
+    its rows); without it each scenario's ε is drawn outside the vmap from
+    ``step.generator`` (seeded ``seed`` + rank), coloured by its own Σ —
+    not JAX's per-key stream. Returns this rank's scenarios;
+    ``step.members(B)`` is their slice. B % n raises."""
+    device = resolve_device(device)
+    members = _fleet_members(group)
+    _warm_filter(cfg, device)
+    generator = _rank_generator(group, device, seed)
+    run = _batched_scan_step(cfg, dynamics_step, stage_cost, terminal_cost, device, generator)
+    shape = (cfg.num_samples, cfg.horizon, cfg.dim_u)
+
+    def step(params: MPPIParams, states: MPPIState, x0s: torch.Tensor,
+             noise: Optional[torch.Tensor] = None):
+        B = x0s.shape[0]
+        mine = members(B)
+        if noise is not None and tuple(noise.shape) != (B,) + shape:
+            raise ValueError(f"noise has shape {tuple(noise.shape)}, expected {(B,) + shape}")
+        local = dataclasses.replace(params, **{
+            name: getattr(params, name)[mine] for name in _PARAM_TENSORS
+            if getattr(params, name) is not None})
+        local_states = MPPIState(u_prev=states.u_prev[mine],
+                                 waypoint_idx=states.waypoint_idx[mine], key=states.key[mine])
+        return run(local, local_states, x0s[mine], None if noise is None else noise[mine])
+
+    step.members = members
+    step.generator = generator
+    return step
 
 
 def make_sharded_mppi_fleet(
@@ -205,11 +301,14 @@ def make_sharded_mppi_fleet(
     dynamics_step: Callable,
     group: Optional[dist.ProcessGroup] = None,
     fused: bool = True,
+    stage_cost: Optional[StageCost] = None,
+    terminal_cost: Optional[TerminalCost] = None,
     **fleet_kwargs,
 ) -> Callable:
     """A fleet of independent MPPI controllers split over the ranks of
-    ``group``: rank i runs :func:`make_fleet_fused_mppi_step` on members
-    [i·B/n, (i+1)·B/n), with no collectives.
+    ``group``: rank i runs members [i·B/n, (i+1)·B/n) with no collectives,
+    through :func:`make_fleet_fused_mppi_step` (``fused=True``) or the
+    batched scan-path step (``fused=False``).
 
     ``step(params, states, x0s)`` takes the whole fleet (B members, as the
     JAX step takes its global arrays): per-member leaves of ``params``
@@ -219,15 +318,32 @@ def make_sharded_mppi_fleet(
     is their slice. B % n raises. ``fleet_kwargs`` go to the fleet step
     (``device`` among them, default the card).
 
-    ``fused=False`` (the JAX vmapped scan fleet) is not ported: the port's
-    ``mppi_step`` has no batch form yet."""
-    if not fused:
-        raise ValueError(
-            "fused=False (the vmapped scan-path fleet) is not ported yet: the "
-            "port's mppi_step has no batch form; use fused=True"
-        )
+    ``fused=False`` is JAX's vmapped scan-path fleet: each rank runs
+    :func:`make_batched_mppi_step`'s computation on its members, the shared
+    leaves broadcast to them (``fleet_kwargs``: ``device`` and ``seed``);
+    it needs ``stage_cost`` and ``terminal_cost``, as in JAX."""
     members = _fleet_members(group)
-    inner = make_fleet_fused_mppi_step(cfg, dynamics_step, **fleet_kwargs)
+    if fused:
+        inner = make_fleet_fused_mppi_step(cfg, dynamics_step, **fleet_kwargs)
+    else:
+        if stage_cost is None or terminal_cost is None:
+            raise ValueError("the scan-path fleet (fused=False) needs stage_cost/terminal_cost")
+        device = resolve_device(fleet_kwargs.pop("device", "cuda"))
+        _warm_filter(cfg, device)
+        generator = _rank_generator(group, device, fleet_kwargs.pop("seed", 0))
+        if fleet_kwargs:
+            raise TypeError(f"the scan-path fleet takes device and seed, not {sorted(fleet_kwargs)}")
+        batched = _batched_scan_step(cfg, dynamics_step, stage_cost, terminal_cost, device,
+                                     generator)
+
+        def inner(params, states, x0s):
+            b = x0s.shape[0]
+            member = {name for name in _MEMBER_LEAVES
+                      if getattr(params, name) is not None and getattr(params, name).dim() == 3}
+            return batched(dataclasses.replace(params, **{
+                name: getattr(params, name) if name in member
+                else getattr(params, name).expand((b,) + getattr(params, name).shape)
+                for name in _PARAM_TENSORS if getattr(params, name) is not None}), states, x0s)
 
     def step(params: MPPIParams, states: MPPIState, x0s: torch.Tensor):
         mine = members(x0s.shape[0])
@@ -288,5 +404,5 @@ def make_sharded_nmpc_fleet(solver: NMPCSolver, group: Optional[dist.ProcessGrou
     return step
 
 
-__all__ = ["make_sharded_fused_mppi_step", "make_sharded_mppi_fleet", "make_sharded_mppi_step",
-           "make_sharded_nmpc_fleet"]
+__all__ = ["make_batched_mppi_step", "make_sharded_fused_mppi_step", "make_sharded_mppi_fleet",
+           "make_sharded_mppi_step", "make_sharded_nmpc_fleet"]

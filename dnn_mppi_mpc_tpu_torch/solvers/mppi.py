@@ -39,15 +39,20 @@ caller passes ``device="cpu"``.
 on the scan path, the diff-drive fused tick and the generic tick; the split
 rollouts, the K-blocked tick, the race car and the fleet raise, as in JAX.
 
-Not ported yet (each raises ``ValueError``, never ignored): the vmapped
-scan fleet, lifted and time-varying tile steps on the card (they run on the
-CPU), and the TPU-only tuning knobs (``lean``, ``fold_anchor``, ``sincos``
-modes, hardware Gaussians).
+:func:`sampled_trajectories` re-rolls a tick's samples for visualization,
+best first. The vmapped scan-path fleet is ``parallel/sharding.py``'s
+``make_batched_mppi_step``.
+
+Not ported (each raises ``ValueError``, never ignored): lifted and
+time-varying tile steps on the card (they run on the CPU), and the TPU-only
+tuning knobs (``lean``, ``fold_anchor``, ``sincos`` modes, hardware
+Gaussians).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -497,6 +502,40 @@ def _optimal_traj(cfg, dynamics_step, params, x0, u_new):
         x = dyn_t(x, torch.clamp(u_new[..., t, :], params.u_min, params.u_max), t)
         xs.append(x)
     return torch.stack(xs, dim=-2)
+
+
+def sampled_trajectories(
+    cfg: MPPIConfig,
+    dynamics_step: Callable,
+    params: MPPIParams,
+    state: MPPIState,
+    x0: torch.Tensor,
+    noise: torch.Tensor,
+    costs: torch.Tensor,
+    top_fraction: float = 1.0,
+) -> torch.Tensor:
+    """Re-roll the sampled sequences for visualization, cost-sorted (best
+    first): the (n_top, T, dim_x) states of the ``n_top = max(1, ⌊K ·
+    top_fraction⌋)`` samples of least ``costs`` (K,), from the tick's ε
+    ``noise`` (K, T, dim_u) and the nominal sequence of ``state`` (the
+    state the tick started from). Ties keep the sample order (a stable
+    sort, as JAX's ``argsort``). Separate from the tick so that the (K, T,
+    dim_x) tensor exists only on demand; nothing in it waits for the card."""
+    K = cfg.num_samples
+    u = state.u_prev
+    x0 = x0.to(u.dtype)
+    k_idx = torch.arange(K, dtype=torch.float32, device=u.device)
+    exploit = (k_idx < f32((1.0 - cfg.exploration) * K))[:, None, None]
+    v = torch.clamp(torch.where(exploit, u[None] + noise, noise), params.u_min, params.u_max)
+    dyn_t = _time_indexed(cfg, dynamics_step)
+    x, xs = x0.expand((K,) + x0.shape), []
+    for t in range(cfg.horizon):
+        x = dyn_t(x, v[:, t], t)
+        xs.append(x)
+    trajs = torch.stack(xs, dim=1)  # (K, T, dim_x)
+    order = torch.argsort(costs, stable=True)
+    n_top = max(1, int(K * top_fraction))
+    return trajs.index_select(0, order[:n_top])
 
 
 def _status(params, wp_idx, finite):
@@ -1154,6 +1193,9 @@ class MPPISolver:
     CUDA device (the default) launches the kernels, ``device="cpu"`` runs
     their plain versions. A lifted or time-varying tile step has no kernel:
     on the card it raises here, on the CPU it runs.
+
+    :meth:`fleet_step` gives the fleet step whose members each run this
+    solver's tick, where there is one.
     """
 
     def __init__(
@@ -1204,6 +1246,7 @@ class MPPISolver:
         self.stage_cost = stage_cost
         self.terminal_cost = terminal_cost
         self.device = resolve_device(device)
+        self._fleet = None
         generic = tick_fn is None and fused_tick and tile_dynamics is not None
         if generic and self.device.type == "cuda":
             from ..ops.cuda.generic_tick import kernel_model
@@ -1232,6 +1275,14 @@ class MPPISolver:
                     safety_margin_rate=safety_margin_rate,
                 )
             else:
+                if cfg.waypoint_carry == "tick":
+                    self._fleet = functools.partial(
+                        make_fleet_fused_mppi_step, cfg, dynamics_step,
+                        robot_radius=robot_radius, collision=collision,
+                        soft_safety_distance=soft_safety_distance, soft_weight=soft_weight,
+                        iso_xy=iso_xy, safety_margin_rate=safety_margin_rate,
+                        device=self.device,
+                    )
                 tick_fn = make_cuda_diffdrive_tick(
                     cfg, robot_radius, collision=collision,
                     soft_safety_distance=soft_safety_distance, soft_weight=soft_weight,
@@ -1264,6 +1315,22 @@ class MPPISolver:
             tick_fn=self.tick_fn, generator=self.generator,
         )
 
+    def fleet_step(self):
+        """``make_fleet_fused_mppi_step`` with this solver's config, dynamics
+        and binder options when its tick is the single-block diff-drive
+        fused tick with the tick-level waypoint carry, else None. A member
+        draws its own key's hash stream, the single-block tick's: its S is
+        this solver's bit for bit given equal inputs; its tail (filter,
+        update, shift) runs in PyTorch whatever ``fuse_epilogue`` says, so u0
+        may differ by rounding."""
+        return None if self._fleet is None else self._fleet()
+
+    def sampled_trajectories(self, params, state, x0, noise, costs, top_fraction=1.0):
+        """:func:`sampled_trajectories` with this solver's config and
+        dynamics."""
+        return sampled_trajectories(self.cfg, self.dynamics_step, params, state, x0, noise,
+                                    costs, top_fraction=top_fraction)
+
 
 __all__ = [
     "CostContext",
@@ -1282,6 +1349,7 @@ __all__ = [
     "make_tracking_costs",
     "mppi_step",
     "resolve_device",
+    "sampled_trajectories",
     "state_from_numpy",
     "tick_seed",
 ]

@@ -326,6 +326,58 @@ def _sharded_nmpc(device):
         dist.destroy_process_group()
 
 
+def _cem():
+    from dnn_mppi_mpc_tpu_torch.solvers import cem
+
+    return cem
+
+
+def _cem_cfg():
+    return _cem().CEMConfig(num_samples=64, horizon=5, dim_x=3, dim_u=2, dt=0.1)
+
+
+def _cem_parts():
+    _, _, step, stage, terminal = _flag()
+    return step, stage, terminal
+
+
+def _cli():
+    from dnn_mppi_mpc_tpu_torch import cli
+
+    return cli
+
+
+def _profiling():
+    from dnn_mppi_mpc_tpu_torch.utils import profiling
+
+    return profiling
+
+
+def _profiled(**device):
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d, _profiling().trace(d, **device) as prof:
+        pass
+    return prof
+
+
+def _batched_step(device):
+    """make_batched_mppi_step: resolves its device before it asks the process
+    group anything; with a device, on a one-process gloo group."""
+    import torch.distributed as dist
+
+    from dnn_mppi_mpc_tpu_torch import parallel
+
+    cfg, _, step, stage, terminal = _flag()
+    if not device:
+        return parallel.make_batched_mppi_step(cfg, step, stage, terminal)
+    parallel.initialize_distributed(device="cpu")
+    try:
+        return parallel.make_batched_mppi_step(cfg, step, stage, terminal, **device)
+    finally:
+        dist.destroy_process_group()
+
+
 DEVICE_DEFAULTS = {
     "MPPISolver": lambda device: _flag_solver(**device),
     "MPPIState.init": lambda device: tmppi.MPPIState.init(_flag()[0], **device),
@@ -391,6 +443,16 @@ DEVICE_DEFAULTS = {
     "train.ActorCritic": lambda device: _train().ActorCritic(2, 8, 1, obs_dim=2, **device),
     "train.PixelActorCritic": lambda device: _train().PixelActorCritic(2, (4,), 8, size=8,
                                                                        **device),
+    "solvers.CEMSolver": lambda device: _cem().CEMSolver(_cem_cfg(), *_cem_parts(), **device),
+    "CEMState.init": lambda device: _cem().CEMState.init(_cem_cfg(), **device),
+    "cem_state_from_numpy": lambda device: _cem().cem_state_from_numpy(
+        np.zeros((5, 2)), np.ones((5, 2)), 0, **device),
+    "parallel.make_batched_mppi_step": _batched_step,
+    "envs.collect_residual_dataset (fleet route)": lambda device: _envs().collect_residual_dataset(
+        *_cli().collect_problem("cpu", 128, 4), 0, 2, 2, **device),
+    "utils.profiling.trace": lambda device: _profiled(**device),
+    "utils.profiling.time_fn": lambda device: _profiling().time_fn(lambda: None, iters=1,
+                                                                   **device),
 }
 
 
@@ -416,6 +478,7 @@ def _kern():
     from dnn_mppi_mpc_tpu_torch.ops import cuda
 
     return cuda
+
 
 
 @pytest.mark.parametrize("entry", list(DEVICE_DEFAULTS))
@@ -452,6 +515,9 @@ def test_port_never_imports_jax():
         "import dnn_mppi_mpc_tpu_torch.utils.logging, dnn_mppi_mpc_tpu_torch.train\n"
         "import dnn_mppi_mpc_tpu_torch.train.rl, dnn_mppi_mpc_tpu_torch.envs.render\n"
         "from dnn_mppi_mpc_tpu_torch.presets import diff_drive_mppi, goal_seeking_mppi\n"
+        "import dnn_mppi_mpc_tpu_torch.solvers.cem, dnn_mppi_mpc_tpu_torch.envs.bullet_bridge\n"
+        "import dnn_mppi_mpc_tpu_torch.testing.oracle, dnn_mppi_mpc_tpu_torch.testing.mock_pybullet\n"
+        "import dnn_mppi_mpc_tpu_torch.utils.profiling, dnn_mppi_mpc_tpu_torch.paths.splines\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'dnn_mppi_mpc_tpu'))\n"

@@ -12,7 +12,8 @@
   ``FileStore`` (no port for the rendezvous): u0 at world size 2 equals
   world size 1, and each rank's slice of the sharded fleet equals the
   whole fleet's members; the ranks are joined with their own time limit;
-* the guards (B % n, ``fused=False``, the divisibility of K and k_blk);
+* the guards (B % n, ``fused=False`` without the costs, the divisibility of K
+  and k_blk);
 * the scan-path sharded step ``make_sharded_mppi_step`` with the generic
   rollout (four-wheel torque model) as its ``rollout_fn``: at world size 1
   against the JAX ``make_sharded_mppi_step`` with

@@ -47,7 +47,7 @@ def main() -> int:
     torch.set_float32_matmul_precision("highest")
     cs._build.load_kernels()
     dev = torch.device("cuda", 0)
-    data, _ = cs.phase_collection(dev)
+    data, _, _ = cs.phase_collection(dev, {}, card)
     net = cs.new_mlp(dev)
     state, _ = cs.train_on_card(net, data, cs.TrainConfig(**cs.TRAIN_CFG), "mlp 5-512x3-3", card)
     cs.DEPLOY_EPISODES = args.episodes

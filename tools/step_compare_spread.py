@@ -60,7 +60,7 @@ def main() -> int:
     torch.set_float32_matmul_precision("highest")
     cs._build.load_kernels()
     dev = torch.device("cuda", 0)
-    ep, _ = cs.phase_collection(dev)
+    ep, _, _ = cs.phase_collection(dev, {}, card)
     cfg = cs.TrainConfig(**cs.RESNET_TRAIN_CFG)
     n = ep.states.shape[0]
     n_train = cs.training._train_rows(n, 0.3, 1)
