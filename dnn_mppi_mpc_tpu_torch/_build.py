@@ -13,6 +13,14 @@ Flags: ``-gencode arch=compute_90a,code=sm_90a -O3 -std=c++17`` and
 FMA, so a kernel rounds operation for operation like its plain PyTorch
 version; no ``--use_fast_math``, so sincosf/expf/logf/tanf stay full
 precision.
+
+A tile step of the user's (``ops/cuda/user_tile.py``) gets a library of its
+own: ``csrc/generic_kernels.cu`` alone, built with ``-DDMM_USER_TILE`` and
+the generated header ``dmm_user_tile.cuh`` beside it, by one ``nvcc`` with
+the same flags at the step's first launch, into
+``_build/libdmm_user_<hash>.so`` (keyed by a hash of the header, the sources
+and the flags, so the same step reuses it), and cached in-process
+(:func:`load_user_kernels`).
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import subprocess
 import tempfile
 from functools import lru_cache
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -244,6 +253,20 @@ def build() -> Path:
     return out
 
 
+def _declare_generic(lib: ctypes.CDLL) -> None:
+    """Declare the generic kernels' C entry points, which the package's
+    library and a generated functor's library both hold."""
+    for fn in (lib.dmm_generic_rollout_costs, lib.dmm_generic_tick):
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.dmm_generic_args_size.argtypes = []
+    lib.dmm_generic_args_size.restype = ctypes.c_int
+    lib.dmm_generic_scratch_floats.argtypes = [ctypes.c_int] * 3
+    lib.dmm_generic_scratch_floats.restype = ctypes.c_longlong
+    lib.dmm_generic_group.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
+    lib.dmm_generic_group.restype = ctypes.c_int
+
+
 @lru_cache(maxsize=None)
 def load_kernels() -> ctypes.CDLL:
     """Build if needed, load, and declare the C entry points."""
@@ -254,8 +277,6 @@ def load_kernels() -> ctypes.CDLL:
     lib.dmm_bicycle_args_size.restype = ctypes.c_int
     lib.dmm_fleet_args_size.argtypes = []
     lib.dmm_fleet_args_size.restype = ctypes.c_int
-    lib.dmm_generic_args_size.argtypes = []
-    lib.dmm_generic_args_size.restype = ctypes.c_int
     lib.dmm_qp_args_size.argtypes = []
     lib.dmm_qp_args_size.restype = ctypes.c_int
     lib.dmm_mlp_args_size.argtypes = []
@@ -266,18 +287,14 @@ def load_kernels() -> ctypes.CDLL:
     lib.dmm_chain_occupancy.restype = ctypes.c_int
     for fn in (lib.dmm_rollout_costs, lib.dmm_mppi_tick, lib.dmm_weighted_noise_reduce,
                lib.dmm_fleet_mppi_tick, lib.dmm_bicycle_rollout_costs, lib.dmm_bicycle_tick,
-               lib.dmm_generic_rollout_costs, lib.dmm_generic_tick, lib.dmm_barrier_qp,
-               lib.dmm_fused_mlp, lib.dmm_resnet_chain):
+               lib.dmm_barrier_qp, lib.dmm_fused_mlp, lib.dmm_resnet_chain):
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.dmm_chunk_scratch_floats.argtypes = [ctypes.c_int] * 3
     lib.dmm_chunk_scratch_floats.restype = ctypes.c_longlong
     lib.dmm_rollout_group.argtypes = [ctypes.c_longlong]
     lib.dmm_rollout_group.restype = ctypes.c_int
-    lib.dmm_generic_scratch_floats.argtypes = [ctypes.c_int] * 3
-    lib.dmm_generic_scratch_floats.restype = ctypes.c_longlong
-    lib.dmm_generic_group.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
-    lib.dmm_generic_group.restype = ctypes.c_int
+    _declare_generic(lib)
     for struct, size_fn in ((DmmArgs, lib.dmm_args_size),
                             (DmmFleetArgs, lib.dmm_fleet_args_size),
                             (DmmBicycleArgs, lib.dmm_bicycle_args_size),
@@ -293,10 +310,56 @@ def load_kernels() -> ctypes.CDLL:
     return lib
 
 
-def launch(entry: str, args: ctypes.Structure, device: torch.device) -> None:
-    """Call C entry ``entry`` on the current stream of ``device``; raise on a
-    non-zero ``cudaGetLastError``."""
-    fn = getattr(load_kernels(), entry)
+# the generated functor's header, as csrc/generic_rollout.cuh includes it
+USER_TILE_HEADER = "dmm_user_tile.cuh"
+USER_TILE_FLAGS = ("-DDMM_USER_TILE",)
+
+
+def user_library_path(header: str) -> Path:
+    """Where the library for the generated functor ``header`` lives (built
+    or not)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS + USER_TILE_FLAGS).encode())
+    h.update(header.encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libdmm_user_{h.hexdigest()[:16]}.so"
+
+
+def build_user(header: str) -> Path:
+    """Compile ``csrc/generic_kernels.cu`` around the generated functor
+    ``header`` unless its library is already there; raise if nvcc fails."""
+    out = user_library_path(header)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        (Path(work) / USER_TILE_HEADER).write_text(header)
+        lib = str(Path(work) / "lib.so")
+        _run_all([[nvcc, *NVCC_FLAGS, *LINK_FLAGS, *USER_TILE_FLAGS, f"-I{work}",
+                   str(CSRC / "generic_kernels.cu"), "-o", lib]])
+        os.replace(lib, out)  # atomic: a concurrent build sees all or nothing
+    return out
+
+
+@lru_cache(maxsize=None)
+def load_user_kernels(header: str) -> ctypes.CDLL:
+    """Build if needed and load the generic kernels of the generated
+    functor ``header``."""
+    lib = ctypes.CDLL(str(build_user(header)))
+    _declare_generic(lib)
+    if lib.dmm_generic_args_size() != ctypes.sizeof(DmmGenericArgs):
+        raise RuntimeError("DmmGenericArgs layout mismatch in the generated functor's library")
+    return lib
+
+
+def launch(entry: str, args: ctypes.Structure, device: torch.device,
+           kernels: Optional[ctypes.CDLL] = None) -> None:
+    """Call C entry ``entry`` of ``kernels`` (default the package's
+    library) on the current stream of ``device``; raise on a non-zero
+    ``cudaGetLastError``."""
+    fn = getattr(load_kernels() if kernels is None else kernels, entry)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(ctypes.addressof(args), ctypes.c_void_p(stream))
@@ -318,8 +381,12 @@ __all__ = [
     "DmmMlpArgs",
     "DmmQPArgs",
     "GENERIC_CONSTANTS",
+    "USER_TILE_HEADER",
     "build",
+    "build_user",
     "launch",
     "library_path",
     "load_kernels",
+    "load_user_kernels",
+    "user_library_path",
 ]

@@ -1,6 +1,10 @@
 // Generic MPPI kernels for Hopper (sm_90a), behind a plain C ABI: the MPPI
 // tick for any of the four built-in tile-step families (unicycle, kinematic
-// bicycle, four-wheel torque, dynamic bicycle).
+// bicycle, four-wheel torque, dynamic bicycle) or, in a library built with
+// -DDMM_USER_TILE, for the one tile step generated from a trace of the
+// user's (dmm_user_tile.cuh, dnn_mppi_mpc_tpu_torch/ops/cuda/user_tile.py:
+// a lift_dynamics or lift_dynamics_time_varying step), which that library
+// runs alone (DmmGenericArgs::model kUserModel).
 //
 // Replaces two Pallas TPU kernels:
 //   dmm_generic_tick          <- dnn_mppi_mpc_tpu/ops/pallas/generic_tick.py:442
@@ -76,8 +80,14 @@ struct GenericGroups {
                        kInjMany = INJ_MANY;
 #endif
 };
+// A generated functor's rule, from its widths: drawn ε 8 lanes up to
+// kGenericFewSamples samples when NX + NU ≤ 9 (no wider than the four-wheel
+// tile, the widest built-in family that takes 8) and 2 above, 2 past that
+// count; injected ε 1 (the rule of the unicycle and four-wheel tiles, whose
+// Euler steps are as cheap as most lifted ones). Tuning G for generated
+// steps is open (ROADMAP A7).
 template <class F>
-struct GenericRule;
+struct GenericRule : GenericGroups<(F::NX + F::NU <= 9 ? 8 : 2), 2, 1, 1> {};
 template <>
 struct GenericRule<DmmUnicycleTile> : GenericGroups<8, 2, 2, 1> {};
 template <>
@@ -204,9 +214,17 @@ cudaError_t launch_generic_tick(const DmmGenericArgs& p, cudaStream_t s) {
   return launch_chunked_reductions<F::NU>(reduce_args(p), p.T, epilogue_args(p), s);
 }
 
-// Dispatch on the family: `Launch<F>` for p.model.
+// DmmGenericArgs::model of the generated functor (ops/cuda/generic_tick.py
+// USER_MODEL): one past the built-in families.
+constexpr int kUserModel = 4;
+
+// Dispatch on the family: `Launch<F>` for p.model. A library built for a
+// generated functor runs that functor alone.
 template <template <class> class Launch>
 cudaError_t by_model(const DmmGenericArgs& p, cudaStream_t s) {
+#ifdef DMM_USER_TILE
+  return p.model == kUserModel ? Launch<DmmUserTile>::run(p, s) : cudaErrorInvalidValue;
+#else
   switch (p.model) {
     case 0: return Launch<DmmUnicycleTile>::run(p, s);
     case 1: return Launch<DmmKinematicBicycleTile>::run(p, s);
@@ -214,6 +232,7 @@ cudaError_t by_model(const DmmGenericArgs& p, cudaStream_t s) {
     case 3: return Launch<DmmDynamicBicycleTile>::run(p, s);
     default: return cudaErrorInvalidValue;
   }
+#endif
 }
 
 template <class F>
@@ -259,10 +278,14 @@ long long dmm_generic_scratch_floats(int K, int T, int nu) {
   return K > 0 && T > 0 && nu > 0 ? chunk_scratch_floats(K, K, T, nu) : -1;
 }
 
-// The lanes a sample the rollout of family `model` (tile.FAMILIES order)
-// runs with for a launch of `samples` samples, ε drawn from the hash stream
-// (hash_eps != 0) or injected; -1 for an unknown family.
+// The lanes a sample the rollout of family `model` (tile.FAMILIES order,
+// or kUserModel in a library built for a generated functor) runs with for a
+// launch of `samples` samples, ε drawn from the hash stream (hash_eps != 0)
+// or injected; -1 for a family the library does not hold.
 int dmm_generic_group(int model, long long samples, int hash_eps) {
+#ifdef DMM_USER_TILE
+  return model == kUserModel ? generic_group<DmmUserTile>(samples, hash_eps != 0) : -1;
+#else
   switch (model) {
     case 0: return generic_group<DmmUnicycleTile>(samples, hash_eps != 0);
     case 1: return generic_group<DmmKinematicBicycleTile>(samples, hash_eps != 0);
@@ -270,6 +293,7 @@ int dmm_generic_group(int model, long long samples, int hash_eps) {
     case 3: return generic_group<DmmDynamicBicycleTile>(samples, hash_eps != 0);
     default: return -1;
   }
+#endif
 }
 
 }  // extern "C"

@@ -16,10 +16,15 @@
 // no row found: the reference (0, ..., 0)), and the furthest final start
 // over K goes to wp_adv.
 //
-// Tile steps are functors: a struct with static NX, NU and a step on
-// register arrays, its constants read from DmmGenericArgs::c in the order of
-// the Python factory (dnn_mppi_mpc_tpu_torch/models/tile.py). The kernels
-// are templates on the functor, so each family compiles to its own rollout.
+// Tile steps are functors: a struct with static NX, NU, TAKES_T and a step
+// on register arrays, step(x, v), or step(x, v, t) with the int rollout step
+// t when TAKES_T; a built-in family reads its constants from
+// DmmGenericArgs::c in the order of the Python factory
+// (dnn_mppi_mpc_tpu_torch/models/tile.py). A library built with
+// -DDMM_USER_TILE also holds a functor generated from a traced tile step of
+// the user's (dnn_mppi_mpc_tpu_torch/ops/cuda/user_tile.py): the header
+// dmm_user_tile.cuh defines it as DmmUserTile, its constants baked in. The
+// kernels are templates on the functor, so each compiles to its own rollout.
 //
 // Layout: the diff-drive rollout's (diffdrive_rollout.cuh). A group of G
 // consecutive lanes of a warp (G a power of two, a template constant; the
@@ -44,6 +49,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <cstring>
 
 #include "diffdrive_rollout.cuh"
 #include "hash_normal.cuh"
@@ -125,6 +131,7 @@ __device__ __forceinline__ float dmm_atan_poly(float x) {
 
 struct DmmUnicycleTile {
   static constexpr int NX = 3, NU = 2;
+  static constexpr bool TAKES_T = false;
   float dt;
   __device__ explicit DmmUnicycleTile(const float* c) : dt(c[0]) {}
   __device__ __forceinline__ void step(float* x, const float* v) const {
@@ -138,6 +145,7 @@ struct DmmUnicycleTile {
 
 struct DmmKinematicBicycleTile {
   static constexpr int NX = 4, NU = 2;
+  static constexpr bool TAKES_T = false;
   float dt, inv_l;
   __device__ explicit DmmKinematicBicycleTile(const float* c) : dt(c[0]), inv_l(c[1]) {}
   __device__ __forceinline__ void step(float* x, const float* v) const {
@@ -153,6 +161,7 @@ struct DmmKinematicBicycleTile {
 
 struct DmmFourWheelTile {
   static constexpr int NX = 5, NU = 4;
+  static constexpr bool TAKES_T = false;
   float dt, cv, cw;
   __device__ explicit DmmFourWheelTile(const float* c) : dt(c[0]), cv(c[1]), cw(c[2]) {}
   __device__ __forceinline__ void step(float* x, const float* v) const {
@@ -169,6 +178,7 @@ struct DmmFourWheelTile {
 
 struct DmmDynamicBicycleTile {
   static constexpr int NX = 4, NU = 2;
+  static constexpr bool TAKES_T = false;
   float dt, beta_gain, lf, lr, cf, cr, inv_m;
   __device__ explicit DmmDynamicBicycleTile(const float* c)
       : dt(c[0]), beta_gain(c[1]), lf(c[2]), lr(c[3]), cf(c[4]), cr(c[5]), inv_m(c[6]) {}
@@ -193,6 +203,40 @@ struct DmmDynamicBicycleTile {
     x[3] = vel + (acc - fy * ss) * inv_m * dt;
   }
 };
+
+// --- what generated tile steps call (ops/cuda/user_tile.py) ---------------------
+
+// minimum / maximum as PyTorch's: NaN in either operand gives NaN.
+__device__ __forceinline__ float dmm_user_min(float a, float b) {
+  return a != a || b != b ? a + b : (b < a ? b : a);
+}
+__device__ __forceinline__ float dmm_user_max(float a, float b) {
+  return a != a || b != b ? a + b : (a < b ? b : a);
+}
+
+// The float32 of the bits `b`: a literal that is not finite.
+__device__ __forceinline__ float dmm_user_bits(unsigned b) {
+  float f;
+  memcpy(&f, &b, sizeof f);
+  return f;
+}
+
+// Full-precision math by names of their own, so that a CPU build of the
+// kernels (tests/cuda_emu.h, which defines DMM_USER_MATH) can point them at
+// PyTorch's. sincosf and tanf the generated code calls as the built-in
+// functors do.
+#ifndef DMM_USER_MATH
+__device__ __forceinline__ float dmm_user_atan(float x) { return atanf(x); }
+__device__ __forceinline__ float dmm_user_atan2(float y, float x) { return atan2f(y, x); }
+__device__ __forceinline__ float dmm_user_exp(float x) { return expf(x); }
+__device__ __forceinline__ float dmm_user_log(float x) { return logf(x); }
+__device__ __forceinline__ float dmm_user_tanh(float x) { return tanhf(x); }
+__device__ __forceinline__ float dmm_user_pow(float x, float e) { return powf(x, e); }
+#endif
+
+#ifdef DMM_USER_TILE
+#include "dmm_user_tile.cuh"
+#endif
 
 // --- the cost ----------------------------------------------------------------
 
@@ -349,7 +393,10 @@ __device__ __forceinline__ float dmm_generic_sample(
       const float term = sa[t * NU + j] * vj;
       energy = j == 0 ? term : energy + term;
     }
-    f.step(x, v);
+    if constexpr (F::TAKES_T)
+      f.step(x, v, t);
+    else
+      f.step(x, v);
     const float track =
         CARRY ? dmm_generic_tracking_carried<G, NX>(x, p.W, p.carry_span, &idx, true, lane, sxy,
                                                     srest, p.n_track, sw, wrap)

@@ -14,11 +14,11 @@ mode gives the same Jacobian in the inputs' dtype.
 
 from __future__ import annotations
 
-from functools import lru_cache
 from typing import Callable
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.func import jacrev, vmap
 
 Dynamics = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -69,13 +69,23 @@ def _gauss_legendre_tableau(num_stages: int):
     return c, A, b
 
 
-@lru_cache(maxsize=None)
+_TABLEAUS: dict = {}
+
+
 def _tableau_tensors(num_stages: int, dtype: torch.dtype, device: torch.device):
     """(A, b) of the tableau on ``device``, copied there once (a copy from
-    the host waits for the card, so it is not made on every step)."""
+    the host waits for the card, so it is not made on every step). Tensors
+    made under a fake-tensor trace (``ops/cuda/user_tile.py`` traces a
+    lifted step so) are not kept: a later eager step would get them."""
+    key = (num_stages, dtype, device)
+    if key in _TABLEAUS:
+        return _TABLEAUS[key]
     _, A, b = _gauss_legendre_tableau(num_stages)
-    return (torch.as_tensor(A, dtype=dtype).to(device),
-            torch.as_tensor(b, dtype=dtype).to(device))
+    tables = (torch.as_tensor(A, dtype=dtype).to(device),
+              torch.as_tensor(b, dtype=dtype).to(device))
+    if not isinstance(tables[0], FakeTensor):
+        _TABLEAUS[key] = tables
+    return tables
 
 
 def irk_step(

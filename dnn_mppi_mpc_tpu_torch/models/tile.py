@@ -9,9 +9,10 @@ Each factory here is the Euler discretization of the matching model in
 ``models/dynamics.py`` and returns a :class:`TileStep`: the plain PyTorch
 function together with its family and its float32 constants, so that the
 generic kernel (``csrc/generic_rollout.cuh``) runs the same step, operation
-for operation, as a compiled functor. The kernel knows the four built-in
-families; a step from :func:`lift_dynamics` (family None) runs only in the
-plain version, on CPU tensors. Only the factories make a step of a family:
+for operation, as a hand-written functor. Any other step — one from
+:func:`lift_dynamics` or :func:`lift_dynamics_time_varying` (family None) —
+runs on the card too: ``ops/cuda/user_tile.py`` traces it into a generated
+functor of the same kernels. Only the factories make a step of a family:
 the kernel reads the family and the constants, never the function, so a
 step that paired a family with another function or other constants would
 run one model on the card and another on the CPU.
@@ -43,10 +44,11 @@ _FACTORY_MADE: "weakref.WeakKeyDictionary[Callable, tuple]" = weakref.WeakKeyDic
 
 @dataclasses.dataclass(frozen=True)
 class TileStep:
-    """A tile step: ``family`` names the kernel functor (None for a lifted
-    step, which the kernel cannot run); ``constants`` are the float32 values
-    the factory baked in (dt first), in the order the functor reads them;
-    ``takes_t`` marks a step called as ``fn(xs, vs, t)``."""
+    """A tile step: ``family`` names the hand-written kernel functor (None
+    for any other step, which the kernel runs as a functor generated from a
+    trace of ``fn``); ``constants`` are the float32 values the factory baked
+    in (dt first), in the order the functor reads them; ``takes_t`` marks a
+    step called as ``fn(xs, vs, t)``, t the 0-d int32 rollout step."""
 
     family: Optional[str]
     nx: Optional[int]
@@ -62,7 +64,7 @@ class TileStep:
                 f"a TileStep of family {self.family!r} is made only by its factory in "
                 "models/tile.py, with the factory's own function and constants: the kernel "
                 "runs the family's built-in step whatever fn is. Wrap a step of your own "
-                "with lift_dynamics (it runs on CPU tensors only)"
+                "with lift_dynamics (the card runs it as a generated functor)"
             )
 
     def __call__(self, xs: Sequence[torch.Tensor], vs: Sequence[torch.Tensor], *t) -> Tiles:
@@ -223,9 +225,20 @@ def dynamic_bicycle_tile(dt: float, params: Optional[DynamicBicycleParams] = Non
 
 def lift_dynamics(dynamics_step: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]) -> TileStep:
     """Adapt an ``(..., nx)``-style discrete step F(x, u) to tile form: stack
-    the tiles on the last axis, call F once, unstack. Family None: the
-    kernel refuses it on the card (write a tile step of a built-in family
-    there); on CPU tensors the plain version runs it."""
+    the tiles on the last axis, call F once, unstack. Family None: on the
+    card the generic kernels run it as a functor that
+    ``ops/cuda/user_tile.py`` generates from a trace of F (built at its first
+    launch), on CPU tensors the plain version runs F itself.
+
+    F may use elementwise add, sub, mul, div, neg, pow by a number, sin,
+    cos, tan, atan, atan2, exp, log, sqrt, tanh, abs, floor, minimum,
+    maximum, clamp, comparisons, logical ops, where, full_like / zeros_like /
+    ones_like, Python numbers and captured scalar tensors, and select, slice,
+    stack, cat, unsqueeze, expand and unbind on the last axis — what
+    ``models/dynamics.py`` with ``euler_step`` or ``rk4_step`` writes. A
+    matrix product (a learned residual), a linear solve (``irk_step``), a
+    reduction, or Python control flow on a tensor's value raises
+    ``ValueError`` on the card, naming the op."""
 
     def step(xs, vs):
         y = dynamics_step(torch.stack(xs, dim=-1), torch.stack(vs, dim=-1))
@@ -238,7 +251,11 @@ def lift_dynamics_time_varying(
     dynamics_step: Callable[[torch.Tensor, torch.Tensor, int], torch.Tensor],
 ) -> TileStep:
     """:func:`lift_dynamics` for a step-indexed F(x, u, t), ``t`` the rollout
-    step; pair with ``MPPIConfig.time_varying_dynamics=True``."""
+    step as a 0-d int32 tensor (JAX's int32 index; cast it, ``t.to(x.dtype)``,
+    where F computes with it); pair with
+    ``MPPIConfig.time_varying_dynamics=True``. On the card the generated
+    functor takes the kernel's int step; F may use the ops of
+    :func:`lift_dynamics` and integer arithmetic and casts of t."""
 
     def step(xs, vs, t):
         y = dynamics_step(torch.stack(xs, dim=-1), torch.stack(vs, dim=-1), t)

@@ -1,9 +1,10 @@
 """Hand-written CUDA kernels of the MPPI hot paths — the diff-drive ticks,
 the two phases of the sample-sharded tick, the fleet tick, the race-car
 (kinematic bicycle) ticks, the generic tick and rollout over tile-step
-dynamics, the NMPC engine's fused barrier-Riccati QP (one problem, or a
-fleet in one launch), and the learned residuals' fused MLP and folded
-ResNet chain — each beside its plain PyTorch version (counterpart of
+dynamics (a built-in family's, or a step of the user's traced into a
+generated functor by ``user_tile``), the NMPC engine's fused
+barrier-Riccati QP (one problem, or a fleet in one launch), and the
+learned residuals' fused MLP and folded ResNet chain — each beside its plain PyTorch version (counterpart of
 ``dnn_mppi_mpc_tpu/ops/pallas``).
 
 Importing this package builds nothing: the kernels are compiled at their
@@ -74,9 +75,11 @@ PLAIN_VERSIONS = (
 
 
 def reset_counts() -> None:
-    """Zero every wrapper's launch count and every plain version's call count."""
+    """Zero every wrapper's launch count (and the generic wrappers' launches
+    on a generated functor) and every plain version's call count."""
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
+    generic_mppi_tick.user_launches = generic_rollout_costs.user_launches = 0
     for fn in PLAIN_VERSIONS:
         fn.calls = 0
 

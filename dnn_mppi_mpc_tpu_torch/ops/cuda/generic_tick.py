@@ -14,11 +14,16 @@ epilogue, four launches in all) through :func:`launch_generic_tick` and
 :func:`generic_mppi_tick_plain` and :func:`generic_rollout_costs_plain`, the
 same computation in plain PyTorch in the kernel's order of operations.
 
-The kernel compiles in the four built-in tile-step families of
-``models/tile.py``. A lifted step (``lift_dynamics``, family None) and a
-time-varying step (``step_takes_t``) have no kernel: on CUDA tensors they
-raise ``ValueError`` — write a tile step of a built-in family for the card.
-The plain version runs lifted and time-varying steps on CPU tensors.
+The package's library compiles in the four built-in tile-step families of
+``models/tile.py``. Any other step — ``lift_dynamics`` around an F(x, u),
+``lift_dynamics_time_varying`` around an F(x, u, t) (``step_takes_t``), or a
+tile step of the user's (family None) — is traced into a CUDA functor by
+``ops/cuda/user_tile.py`` and runs on the same kernels in a library of its
+own (``_build.load_user_kernels``, built at the step's first launch;
+``DmmGenericArgs::model`` :data:`USER_MODEL`). A step the tracer cannot
+lower raises ``ValueError`` naming the ATen op, before any launch. The plain
+version calls the step with the kernel's t, a 0-d int32 tensor of the
+rollout step (JAX's int32 index).
 
 ``rollout_carry`` (waypoint_carry="rollout", JAX ``generic_tick.py:226,
 334-356, 554-644``) runs in the tick of every family: ``window`` is the
@@ -44,9 +49,15 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..._build import GENERIC_CONSTANTS, DmmGenericArgs, launch, load_kernels
+from ..._build import (
+    GENERIC_CONSTANTS,
+    DmmGenericArgs,
+    launch,
+    load_kernels,
+    load_user_kernels,
+)
 from ...models.tile import FAMILIES
-from . import common
+from . import common, user_tile
 from .common import (
     TWO_PI, _obstacle_plain, check, check_seed, f32, on_cuda, softmax_plain,
     weighted_noise_plain,
@@ -87,25 +98,44 @@ def _check_args(step_tile, nx: int, nu: int, n_track: int, window: torch.Tensor,
         )
 
 
-def kernel_model(step_tile, step_takes_t: bool) -> int:
-    """The kernel's ``model`` field for the step, or ``ValueError`` for what
-    the kernel cannot run."""
-    if step_takes_t:
-        raise ValueError("step_takes_t (a time-varying tile step) has no kernel: it runs in "
-                         "the plain version on CPU tensors")
+# DmmGenericArgs::model of a generated functor (kUserModel in
+# csrc/generic_kernels.cu): one past the built-in families
+USER_MODEL = len(FAMILIES)
+
+
+def kernel_model(step_tile, step_takes_t: bool, nx: Optional[int] = None,
+                 nu: Optional[int] = None) -> int:
+    """The kernel's ``model`` field for the step: its family's, or
+    :data:`USER_MODEL` for any other step, which ``user_tile.lower`` traces
+    at nx, nu (raising ``ValueError`` for what it cannot lower)."""
     family = getattr(step_tile, "family", None)
-    if family not in FAMILIES:
+    if family is None:
+        user_tile.lower(step_tile, nx, nu, step_takes_t)
+        return USER_MODEL
+    if step_takes_t:
         raise ValueError(
-            "the generic kernel compiles in the tile steps of the built-in families "
-            f"{', '.join(FAMILIES)} (models/tile.py); a lifted step (lift_dynamics) runs "
-            "only on CPU tensors — write a tile step of one of these families for the card"
+            f"step_takes_t with a tile step of the built-in family {family!r}, whose functor "
+            "takes no t: build a time-varying step with lift_dynamics_time_varying"
         )
+    if family not in FAMILIES:
+        raise ValueError(f"unknown tile-step family {family!r}: the kernel compiles in "
+                         f"{', '.join(FAMILIES)}")
     return FAMILIES.index(family)
 
 
+def _kernels(step_tile, step_takes_t: bool, nx: int, nu: int):
+    """(the ``model`` field, the library that runs it: the package's for a
+    built-in family, None then, or the generated functor's own)."""
+    model = kernel_model(step_tile, step_takes_t, nx, nu)
+    if model != USER_MODEL:
+        return model, None
+    return model, load_user_kernels(user_tile.lower(step_tile, nx, nu, step_takes_t).header)
+
+
 def _constants(step_tile) -> ctypes.Array:
-    """The tile step's float32 constants as ``DmmGenericArgs::c``."""
-    return (ctypes.c_float * GENERIC_CONSTANTS)(*step_tile.constants)
+    """The tile step's float32 constants as ``DmmGenericArgs::c`` (none for
+    a generated functor, which bakes its own in)."""
+    return (ctypes.c_float * GENERIC_CONSTANTS)(*getattr(step_tile, "constants", ()))
 
 
 def _tracking_plain(xs, window, w, wrap_yaw: bool) -> torch.Tensor:
@@ -180,6 +210,8 @@ def generic_rollout_body_plain(
     S = torch.zeros(K, dtype=torch.float32, device=eps.device)
     idx = torch.zeros(K, dtype=torch.int64, device=eps.device)
     n_obs = 0 if obstacles is None else obstacles.shape[0]
+    # the kernel's t: the int32 rollout step, a 0-d tensor on the samples' device
+    steps = torch.arange(T, dtype=torch.int32, device=eps.device) if step_takes_t else None
     for t in range(T):
         vs, energy = [], None
         for j in range(nu):
@@ -188,7 +220,8 @@ def generic_rollout_body_plain(
             vs.append(v)
             term = a[t, j] * v
             energy = term if energy is None else energy + term
-        xs = tuple(step_tile(xs, tuple(vs), t) if step_takes_t else step_tile(xs, tuple(vs)))
+        xs = tuple(step_tile(xs, tuple(vs), steps[t]) if step_takes_t
+                   else step_tile(xs, tuple(vs)))
         if len(xs) != x0.shape[0]:
             raise ValueError(f"the tile step returned {len(xs)} state dims, expected {x0.shape[0]}")
         if carry_W:
@@ -290,17 +323,22 @@ def generic_rollout_costs_plain(
 generic_rollout_costs_plain.calls = 0
 
 
-def scratch_floats(K: int, T: int, nu: int) -> int:
+def scratch_floats(K: int, T: int, nu: int, kernels=None) -> int:
     """The floats of scratch the generic tick's chunked reductions need, as
-    the library computes them (``dmm_generic_scratch_floats``; the chunk
-    layout lives in csrc/mppi_reductions.cuh alone)."""
-    return load_kernels().dmm_generic_scratch_floats(K, T, nu)
+    the library (``kernels``, default the package's) computes them
+    (``dmm_generic_scratch_floats``; the chunk layout lives in
+    csrc/mppi_reductions.cuh alone)."""
+    return (load_kernels() if kernels is None else kernels).dmm_generic_scratch_floats(K, T, nu)
 
 
-def rollout_group(family: str, samples: int, hash_eps: bool) -> int:
+def rollout_group(family: Optional[str], samples: int, hash_eps: bool,
+                  kernels=None) -> int:
     """The lanes a sample the generic rollout of ``family`` runs with in a
     launch of ``samples`` samples, ε drawn from the hash stream (the tick
-    without injected ε) or injected: the library's rule."""
+    without injected ε) or injected: the library's rule. Family None is the
+    generated functor of the library ``kernels``."""
+    if family is None:
+        return kernels.dmm_generic_group(USER_MODEL, samples, int(hash_eps))
     return load_kernels().dmm_generic_group(FAMILIES.index(family), samples, int(hash_eps))
 
 
@@ -311,9 +349,10 @@ def launch_generic_rollout(
     step_takes_t=False,
 ) -> torch.Tensor:
     """Check the inputs, allocate S and launch ``dmm_generic_rollout_costs``
-    on injected ε (K_local, T, nu). Returns S (K_local,)."""
+    on injected ε (K_local, T, nu), from the step's library. Returns S
+    (K_local,)."""
     _check_args(step_tile, nx, nu, n_track, window, collision)
-    model = kernel_model(step_tile, step_takes_t)
+    model, kernels = _kernels(step_tile, step_takes_t, nx, nu)
     dev = u.device
     K = eps.shape[0]
     check("eps", eps, (K, T, nu), dev)
@@ -329,7 +368,8 @@ def launch_generic_rollout(
         wrap_yaw=wrap_yaw, last_only=last_only, collision=collision,
     )
     launch("dmm_generic_rollout_costs",
-           DmmGenericArgs(eps=eps_t.data_ptr(), S=S.data_ptr(), eps_mode=0, **fields), dev)
+           DmmGenericArgs(eps=eps_t.data_ptr(), S=S.data_ptr(), eps_mode=0, **fields), dev,
+           kernels)
     del held  # the launch is enqueued: the allocator orders any reuse after it
     return S
 
@@ -386,10 +426,13 @@ def generic_rollout_costs(
         collision=collision, step_takes_t=step_takes_t,
     )
     generic_rollout_costs.launches += 1
+    if getattr(step_tile, "family", None) is None:
+        generic_rollout_costs.user_launches += 1
     return S
 
 
 generic_rollout_costs.launches = 0
+generic_rollout_costs.user_launches = 0  # the launches on a generated functor
 
 
 # --- the fused tick -------------------------------------------------------------
@@ -446,9 +489,10 @@ def launch_generic_tick(
     ``filter_t`` is given; with ``carry_W`` > 0 the rollout carry
     (``wp_adv``, the (1,) int32 furthest carried row, zeroed here). Returns
     a dict of the output tensors (``eps`` is the (T, K, nu) buffer, None
-    when ε is drawn again)."""
+    when ε is drawn again). A generated functor's step runs from its own
+    library."""
     _check_args(step_tile, nx, nu, n_track, window, collision)
-    model = kernel_model(step_tile, step_takes_t)
+    model, kernels = _kernels(step_tile, step_takes_t, nx, nu)
     dev = u.device
     fields, held = _fill_args(
         model=model, step_tile=step_tile, u=u, a=a, x0=x0, window=window,
@@ -459,7 +503,7 @@ def launch_generic_tick(
         k_offset=k_offset, nx=nx, nu=nu, n_track=n_track, K=K, T=T, W=W,
         wrap_yaw=wrap_yaw, last_only=last_only, collision=collision,
     )
-    n = scratch_floats(K, T, nu)
+    n = scratch_floats(K, T, nu, kernels)
     out = {name: torch.empty(shape, dtype=torch.float32, device=dev)
            for name, shape in (("S", (K,)), ("w", (K,)), ("w_eps", (T, nu)), ("stats", (2,)),
                                ("scratch", (n,)))}
@@ -487,7 +531,7 @@ def launch_generic_tick(
         eps_mode=eps_mode, inv_temp=f32(inv_temperature),
         fuse_epilogue=int(filter_t is not None), scratch_floats=n,
         **{name: t.data_ptr() for name, t in out.items()}, **fields,
-    ), dev)
+    ), dev, kernels)
     del held  # the launch is enqueued: the allocator orders any reuse after it
     out["eps"] = eps_buf
     return out
@@ -565,6 +609,8 @@ def generic_mppi_tick(
         step_takes_t=step_takes_t, carry_W=carry_W if rollout_carry else 0,
     )
     generic_mppi_tick.launches += 1
+    if getattr(step_tile, "family", None) is None:
+        generic_mppi_tick.user_launches += 1
     result = [out["S"], out["w"], out["w_eps"]]
     if fuse_epilogue:
         result.append((out["u_new"], out["u_shift"], out["finite"]))
@@ -576,8 +622,10 @@ def generic_mppi_tick(
 
 
 generic_mppi_tick.launches = 0
+generic_mppi_tick.user_launches = 0  # the launches on a generated functor
 
 __all__ = [
+    "USER_MODEL",
     "check_staging",
     "generic_mppi_tick",
     "generic_mppi_tick_plain",

@@ -27,7 +27,7 @@ import torch
 
 from ..config import MPPIParams, resolve_device
 from ..ops.waypoints import nearest_waypoint
-from .mppi import CostContext, StageCost, TerminalCost, _time_indexed
+from .mppi import CostContext, StageCost, TerminalCost, _step_times, _time_indexed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,14 +121,14 @@ def cem_step(
     wp_idx, _ = nearest_waypoint(params.ref_path, x0[:2], state.waypoint_idx,
                                  cfg.waypoint_search_len)
     ctx = CostContext(params=params, waypoint_start=wp_idx)
-    dyn_t = _time_indexed(cfg, dynamics_step)
+    dyn_t, times = _time_indexed(cfg, dynamics_step), _step_times(cfg, T, x0.device)
 
     def rollout_costs(v):
         """(K, T, nu) clamped sequences → (K,) summed costs."""
         x = x0.expand((K,) + x0.shape)
         s = torch.zeros(K, dtype=x0.dtype, device=x0.device)
         for t in range(T):
-            x = dyn_t(x, v[:, t], t)
+            x = dyn_t(x, v[:, t], times[t])
             s = s + stage_cost(x, t, ctx)
         return s + terminal_cost(x, ctx)
 

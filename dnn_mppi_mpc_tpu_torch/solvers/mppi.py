@@ -260,6 +260,16 @@ def _time_indexed(cfg, dynamics_step):
     return lambda x, v, t: dynamics_step(x, v)
 
 
+def _step_times(cfg, T: int, device):
+    """What F(x, u, t) receives as t at each rollout step: with
+    ``time_varying_dynamics``, the 0-d int32 step index on ``device`` (JAX's
+    int32 scan index, and the generic kernels' t), one ``arange`` indexed per
+    step; otherwise the step number, which ``_time_indexed`` drops."""
+    if cfg.time_varying_dynamics:
+        return torch.arange(T, dtype=torch.int32, device=device)
+    return range(T)
+
+
 def _check_carry_modes(cfg: MPPIConfig) -> None:
     if cfg.waypoint_carry not in ("tick", "rollout"):
         raise ValueError(f"waypoint_carry must be 'tick' or 'rollout': {cfg.waypoint_carry!r}")
@@ -462,7 +472,7 @@ def _scan_rollout(cfg, dynamics_step, stage_cost, terminal_cost, params, ctx, u,
     # averaged over M plus a discounted rollout-variance penalty
     M = max(1, cfg.num_rollout_repeats)
     batch = (K,) if M == 1 else (M, K)
-    dyn_t = _time_indexed(cfg, dynamics_step)
+    dyn_t, times = _time_indexed(cfg, dynamics_step), _step_times(cfg, T, u.device)
     x = x0.expand(batch + x0.shape)
     s = torch.zeros(batch, dtype=u.dtype, device=u.device)
     var = torch.zeros(K, dtype=u.dtype, device=u.device)
@@ -470,7 +480,7 @@ def _scan_rollout(cfg, dynamics_step, stage_cost, terminal_cost, params, ctx, u,
     wpi = ctx.waypoint_start.expand(batch) if carry else None
     for t in range(T):
         v_t = v[:, t] if M == 1 else v[:, t].expand((M,) + v[:, t].shape)
-        x = dyn_t(x, v_t, t)
+        x = dyn_t(x, v_t, times[t])
         ctx_t = ctx
         if carry:
             idx_new, ref = nearest_waypoint_carried(
@@ -496,10 +506,10 @@ def _optimal_traj(cfg, dynamics_step, params, x0, u_new):
     if not cfg.compute_optimal_traj:
         return torch.zeros(x0.shape[:-1] + (cfg.horizon, x0.shape[-1]), dtype=u_new.dtype,
                            device=u_new.device)
-    dyn_t = _time_indexed(cfg, dynamics_step)
+    dyn_t, times = _time_indexed(cfg, dynamics_step), _step_times(cfg, cfg.horizon, x0.device)
     xs, x = [], x0
     for t in range(cfg.horizon):
-        x = dyn_t(x, torch.clamp(u_new[..., t, :], params.u_min, params.u_max), t)
+        x = dyn_t(x, torch.clamp(u_new[..., t, :], params.u_min, params.u_max), times[t])
         xs.append(x)
     return torch.stack(xs, dim=-2)
 
@@ -527,10 +537,10 @@ def sampled_trajectories(
     k_idx = torch.arange(K, dtype=torch.float32, device=u.device)
     exploit = (k_idx < f32((1.0 - cfg.exploration) * K))[:, None, None]
     v = torch.clamp(torch.where(exploit, u[None] + noise, noise), params.u_min, params.u_max)
-    dyn_t = _time_indexed(cfg, dynamics_step)
+    dyn_t, times = _time_indexed(cfg, dynamics_step), _step_times(cfg, cfg.horizon, u.device)
     x, xs = x0.expand((K,) + x0.shape), []
     for t in range(cfg.horizon):
-        x = dyn_t(x, v[:, t], t)
+        x = dyn_t(x, v[:, t], times[t])
         xs.append(x)
     trajs = torch.stack(xs, dim=1)  # (K, T, dim_x)
     order = torch.argsort(costs, stable=True)
@@ -969,8 +979,10 @@ def make_cuda_generic_tick(
     SUM or LAST. With ``fuse_epilogue`` the kernel also applies the filter,
     update, non-finite hold and shift.
 
-    On the card the step must be of a built-in family; a lifted or
-    time-varying step runs on CPU tensors only. Repeats, a collision other
+    On the card a built-in family runs its hand-written functor; any other
+    step (``lift_dynamics``, ``lift_dynamics_time_varying``) its generated
+    one (ops/cuda/user_tile.py), from a library built at its first launch.
+    Repeats, a collision other
     than circle or soft and stage/terminal weights of different lengths
     raise ``ValueError``. ``cfg.waypoint_carry="rollout"`` carries each
     sample's window start as the diff-drive tick does
@@ -1191,8 +1203,10 @@ class MPPISolver:
     ``use_kernel`` (default ``cfg.use_kernel``) binds the split rollout
     kernel otherwise. Tensors on ``device`` decide where each tick runs: a
     CUDA device (the default) launches the kernels, ``device="cpu"`` runs
-    their plain versions. A lifted or time-varying tile step has no kernel:
-    on the card it raises here, on the CPU it runs.
+    their plain versions. A lifted or time-varying tile step
+    (``lift_dynamics``, ``lift_dynamics_time_varying``) is traced into a
+    generated functor of the same kernel on the card; one with an op the
+    tracer cannot lower raises here, naming it.
 
     :meth:`fleet_step` gives the fleet step whose members each run this
     solver's tick, where there is one.
@@ -1251,7 +1265,8 @@ class MPPISolver:
         if generic and self.device.type == "cuda":
             from ..ops.cuda.generic_tick import kernel_model
 
-            kernel_model(tile_dynamics, cfg.time_varying_dynamics)  # raises without a kernel
+            # traces a lifted step here: one the card cannot run raises, naming the op
+            kernel_model(tile_dynamics, cfg.time_varying_dynamics, cfg.dim_x, cfg.dim_u)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         if generic:
             tick_fn = make_cuda_generic_tick(

@@ -237,19 +237,23 @@ inline T __ldg(const T* p) {
 }
 
 // The float transcendentals of the plain versions: a test points emu_math
-// at PyTorch's (op 0 sin, 1 cos, 2 tan) so that a kernel's source rounds like
-// its plain version on the CPU; null, the C library's. Its results are kept
-// by argument, since the lanes of a group ask for the same ones.
+// at PyTorch's (op 0 sin, 1 cos, 2 tan, 3 atan, 4 atan2(x, y), 5 exp, 6 log,
+// 7 tanh, 8 pow(x, y); y is 0 for a function of one argument) so that a
+// kernel's source rounds like its plain version on the CPU; null, the C
+// library's. Its results are kept by argument, since the lanes of a group
+// ask for the same ones.
 extern "C" {
-inline float (*emu_math)(int, float) = nullptr;
+inline float (*emu_math)(int, float, float) = nullptr;
 }
-inline float emu_math_of(int op, float x) {
-  static std::unordered_map<uint64_t, float> known;
-  uint32_t bits;
-  std::memcpy(&bits, &x, 4);
-  const uint64_t key = (static_cast<uint64_t>(op) << 32) | bits;
-  const auto it = known.find(key);
-  return it != known.end() ? it->second : known.emplace(key, emu_math(op, x)).first->second;
+inline float emu_math_of(int op, float x, float y = 0.0f) {
+  static std::unordered_map<uint64_t, float> known[9];
+  uint32_t bx, by;
+  std::memcpy(&bx, &x, 4);
+  std::memcpy(&by, &y, 4);
+  const uint64_t key = (static_cast<uint64_t>(bx) << 32) | by;
+  const auto it = known[op].find(key);
+  return it != known[op].end() ? it->second
+                               : known[op].emplace(key, emu_math(op, x, y)).first->second;
 }
 inline void emu_sincosf(float x, float* s, float* c) {
   if (emu_math) {
@@ -262,6 +266,20 @@ inline void emu_sincosf(float x, float* s, float* c) {
 inline float emu_tanf(float x) { return emu_math ? emu_math_of(2, x) : ::tanf(x); }
 #define sincosf emu_sincosf
 #define tanf emu_tanf
+
+// The math a generated tile step calls by name (csrc/generic_rollout.cuh
+// defines these on the card unless DMM_USER_MATH is set), routed the same way.
+#define DMM_USER_MATH
+inline float dmm_user_atan(float x) { return emu_math ? emu_math_of(3, x) : ::atanf(x); }
+inline float dmm_user_atan2(float y, float x) {
+  return emu_math ? emu_math_of(4, y, x) : ::atan2f(y, x);
+}
+inline float dmm_user_exp(float x) { return emu_math ? emu_math_of(5, x) : ::expf(x); }
+inline float dmm_user_log(float x) { return emu_math ? emu_math_of(6, x) : ::logf(x); }
+inline float dmm_user_tanh(float x) { return emu_math ? emu_math_of(7, x) : ::tanhf(x); }
+inline float dmm_user_pow(float x, float e) {
+  return emu_math ? emu_math_of(8, x, e) : ::powf(x, e);
+}
 
 inline dim3 emu_dim(dim3 d) { return d; }
 inline dim3 emu_dim(int x) { return dim3(static_cast<unsigned>(x)); }

@@ -410,13 +410,17 @@ def test_sigma_factors_are_computed_once_per_params_object():
 
 
 def test_kernel_refuses_what_it_cannot_run():
-    """A lifted step and a time-varying step have no kernel: the check that
-    guards the CUDA launch raises, naming the built-in families; on CPU
-    tensors a lifted step runs. The split generic rollout has no per-rollout
+    """A lifted step runs on the card as a generated functor (model
+    USER_MODEL); one with an op the tracer cannot lower makes the check that
+    guards the CUDA launch raise, naming the op. A built-in family called
+    with step_takes_t raises. The split generic rollout has no per-rollout
     carry (the tick has it, as in JAX): its binder raises."""
-    lifted = ttile.lift_dynamics(lambda x, u: x)
-    with pytest.raises(ValueError, match="four_wheel_torque"):
-        kern.generic_tick.kernel_model(lifted, False)
+    weights = torch.eye(5)
+    lifted = ttile.lift_dynamics(lambda x, u: x + x @ weights)
+    with pytest.raises(ValueError, match="aten.mm"):
+        kern.generic_tick.kernel_model(lifted, False, 5, 4)
+    assert kern.generic_tick.kernel_model(ttile.lift_dynamics(lambda x, u: x), False, 5,
+                                          4) == kern.generic_tick.USER_MODEL
     with pytest.raises(ValueError, match="step_takes_t"):
         kern.generic_tick.kernel_model(ttile.unicycle_tile(DT), True)
     tc, *_ = _guard_setup(waypoint_carry="rollout")
@@ -429,9 +433,12 @@ def test_kernel_refuses_what_it_cannot_run():
 
 
 def test_tile_dynamics_on_the_card_refuses_a_lifted_step(monkeypatch):
+    """On the card MPPISolver traces a lifted step at construction: one
+    that sums over the state (a reduction) raises, naming the op."""
     tc, tp, tstep, tsc, ttc = _guard_setup()
     # the check comes before anything touches the card, so it runs here
     monkeypatch.setattr(tmppi, "resolve_device", lambda d: torch.device("cuda"))
-    with pytest.raises(ValueError, match="lift_dynamics"):
-        tmppi.MPPISolver(tc, tstep, tsc, ttc, fused_tick=True,
-                         tile_dynamics=ttile.lift_dynamics(tstep), device="cuda")
+    with pytest.raises(ValueError, match="aten.sum"):
+        tmppi.MPPISolver(tc, tstep, tsc, ttc, fused_tick=True, device="cuda",
+                         tile_dynamics=ttile.lift_dynamics(
+                             lambda x, u: tstep(x, u) + x.sum(-1, keepdim=True)))

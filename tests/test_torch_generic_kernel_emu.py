@@ -111,7 +111,7 @@ def libs(tmp_path_factory):
 @contextlib.contextmanager
 def running_on(lib):
     """Within the block the generic wrappers' launches go to ``lib``."""
-    def launch(entry, args, device):
+    def launch(entry, args, device, kernels=None):
         assert device.type == "cpu"
         err = getattr(lib, entry)(ctypes.addressof(args), None)
         if err != 0:
@@ -602,7 +602,8 @@ def test_launch_refuses(libs, case, monkeypatch):
     entry, fields = REFUSED[case]
     lib = libs["shipped"]
     captured = {}
-    monkeypatch.setattr(gt, "launch", lambda e, args, device: captured.update(args=args))
+    monkeypatch.setattr(gt, "launch", lambda e, args, device, kernels=None:
+                        captured.update(args=args))
     monkeypatch.setattr(gt, "load_kernels", lambda: lib)
     p, kw = _case("four_wheel_torque circle", 128)
     if entry == "dmm_generic_rollout_costs":

@@ -378,8 +378,23 @@ def _batched_step(device):
         dist.destroy_process_group()
 
 
+def _lifted_solver(time_varying: bool, **device):
+    """MPPISolver on the generic tick over a lifted step: on the card it
+    runs the step's generated functor."""
+    from dnn_mppi_mpc_tpu_torch.models import tile
+
+    cfg, _, step, stage, terminal = _flag(time_varying_dynamics=time_varying)
+    lifted = (tile.lift_dynamics_time_varying(lambda x, u, t: step(x, u)) if time_varying
+              else tile.lift_dynamics(step))
+    dyn = (lambda x, u, t: step(x, u)) if time_varying else step
+    return tmppi.MPPISolver(cfg, dyn, stage, terminal, fused_tick=True, tile_dynamics=lifted,
+                            **device)
+
+
 DEVICE_DEFAULTS = {
     "MPPISolver": lambda device: _flag_solver(**device),
+    "MPPISolver (lift_dynamics)": lambda device: _lifted_solver(False, **device),
+    "MPPISolver (lift_dynamics_time_varying)": lambda device: _lifted_solver(True, **device),
     "MPPIState.init": lambda device: tmppi.MPPIState.init(_flag()[0], **device),
     "presets.flagship": lambda device: presets.flagship(1024, 20, **device),
     "presets.racecar_mppi": lambda device: presets.racecar_mppi(
@@ -518,6 +533,7 @@ def test_port_never_imports_jax():
         "import dnn_mppi_mpc_tpu_torch.solvers.cem, dnn_mppi_mpc_tpu_torch.envs.bullet_bridge\n"
         "import dnn_mppi_mpc_tpu_torch.testing.oracle, dnn_mppi_mpc_tpu_torch.testing.mock_pybullet\n"
         "import dnn_mppi_mpc_tpu_torch.utils.profiling, dnn_mppi_mpc_tpu_torch.paths.splines\n"
+        "import dnn_mppi_mpc_tpu_torch.ops.cuda.user_tile\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'dnn_mppi_mpc_tpu'))\n"

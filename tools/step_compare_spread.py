@@ -21,9 +21,17 @@ to ``--out``, one line a compare; a last ``{"step_spread_tensor_summary":
 tensor's largest and median error over the compares. Each compare also
 holds the card's and the CPU's float32 steps against the CPU's float64 step
 (``f64``), and two ``{"step_spread_f64": ...}`` lines sum that up for the
-series batches and the epoch minibatches. Run from anywhere:
+series batches and the epoch minibatches. With ``--draws N``, each
+compare also takes N + 1 more float32 steps on the card and N + 1 on the
+CPU, in the minibatch's order and N seeded permutations of its rows
+(``chip_smoke.step_orders``), each against the float64 step, and a
+``{"step_spread_orders": ...}`` line counts how many of the card's steps
+``chip_smoke.step_ok``'s rule would fail with the CPU's farthest over its
+first n + 1 orders as the referee, for each n of ``--judge``. Run from
+anywhere:
 
     python tools/step_compare_spread.py [--seeds 0 0 0 1 2] [--minibatches 4] [--out PATH]
+                                        [--draws 16] [--judge 0 4 8 16]
 
 Prints the card's name and power limit first; exits non-zero without a card.
 """
@@ -49,6 +57,10 @@ def main() -> int:
     ap.add_argument("--minibatches", type=int, default=4)
     ap.add_argument("--out", default="step_spread_tensors.jsonl",
                     help="where each compare's per-tensor gradient errors go, one line a compare")
+    ap.add_argument("--draws", type=int, default=0,
+                    help="permuted row orders for the card's and the CPU's float32 draws")
+    ap.add_argument("--judge", type=int, nargs="+", default=[0, 4, 8, 16],
+                    help="row orders of the CPU's referee whose failures to count")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("step_compare_spread: needs an NVIDIA GPU", file=sys.stderr)
@@ -89,6 +101,8 @@ def main() -> int:
             line = {"step_spread": label, "run": run, "seed": seed, **line,
                     "grad_worst_tensor": worst_k, **{f"grad_worst_{k}": v
                                                      for k, v in by_tensor[worst_k].items()}}
+            if args.draws:
+                line["draws"] = order_draws(net, state.opt_state, cfg, x, y, args.draws)
             cs.emit(line)
             tensor_log.write(json.dumps({"step_spread_tensors": label, "run": run,
                                          "grad_by_tensor": by_tensor}) + "\n")
@@ -140,7 +154,40 @@ def main() -> int:
              "median_rel_err_by_tensor": {k: sorted(v)[len(v) // 2] for k, v in per.items()},
              "min_ref_max_by_tensor": {k: min(t[k]["ref_max"] for t in tensors) for k in names}})
     tensor_log.close()
+    drawn = [ln["draws"] for ln in lines if "draws" in ln]
+    if drawn:
+        judged = {}
+        for n in args.judge:
+            fails = [sum(not all(e[k] <= max(rtol, max(c[k] for c in d["cpu"][:n + 1]))
+                                 for k in cs.STEP_ERRORS) for e in d["card"]) for d in drawn]
+            judged[str(n)] = {"card_steps_failed": sum(fails),
+                              "compares_with_a_failure": sum(f > 0 for f in fails)}
+        grad = {side: [e["grad_rel_err"] for d in drawn for e in d[side]]
+                for side in ("card", "cpu")}
+        cs.emit({"step_spread_orders": "resnet18", "card": card, "compares": len(drawn),
+                 "card_steps": len(grad["card"]), "rtol": rtol, "failed_by_referee_orders": judged,
+                 "card_grad_vs_f64_max": max(grad["card"]),
+                 "cpu_grad_vs_f64_max": max(grad["cpu"]),
+                 "card_grad_vs_f64_median": sorted(grad["card"])[len(grad["card"]) // 2],
+                 "cpu_grad_vs_f64_median": sorted(grad["cpu"])[len(grad["cpu"]) // 2],
+                 "card64_vs_cpu64_max": max(max(ln["f64"]["card64"].values()) for ln in lines),
+                 "cpu_orders_over_cpu": sum(ln["f64"]["cpu_orders"]["grad_rel_err"]
+                                            > ln["f64"]["cpu"]["grad_rel_err"] for ln in lines)})
     return 0
+
+
+def order_draws(net, opt_state, cfg, x, y, n: int) -> dict:
+    """The card's and the CPU's float32 steps on the card's branches, in the
+    minibatch's order and ``n`` permutations of its rows, each against the
+    CPU's float64 step (``chip_smoke.step_errs``)."""
+    card = cs.step_run(net, opt_state, cfg, x, y, "card")
+    f64 = cs.step_run(net, opt_state, cfg, x, y, "cpu64", given=card[3])
+    exact = (f64[0], {k: g.float() for k, g in f64[1].items()},
+             {k: q.float() for k, q in f64[2].items()})
+    orders = [None] + cs.step_orders(int(x.shape[0]), n)
+    return {side: [cs.step_errs(cs.step_run(net, opt_state, cfg, x, y, side, given=card[3],
+                                            order=o), exact) for o in orders]
+            for side in ("card", "cpu")}
 
 
 if __name__ == "__main__":
