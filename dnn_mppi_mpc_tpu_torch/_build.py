@@ -119,7 +119,7 @@ class DmmGenericArgs(ctypes.Structure):
         (name, ctypes.c_void_p)
         for name in (
             "seed", "u", "a", "chol", "x0", "window", "stage_w", "term_w",
-            "u_min", "u_max", "obstacles", "filter_t", "eps", "S", "w", "w_eps",
+            "u_min", "u_max", "obstacles", "filter_t", "weights", "eps", "S", "w", "w_eps",
             "stats", "u_new", "u_shift", "finite", "scratch", "wp_adv",
         )
     ] + [

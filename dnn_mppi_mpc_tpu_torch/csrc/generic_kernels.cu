@@ -28,7 +28,13 @@
 // rollouts are. Splitting the W-row search over G lanes moved little (the
 // split rollout's time is flat in G, root PERF.md §6): the search is a small
 // part of a step; what G buys is the drawn ε (G lanes draw G steps at once)
-// and more warps at small K.
+// and more warps at small K. A generated functor with matrix products (a
+// learned residual: a 5→32→32→3 MLP is 1 280 multiply-adds and 64 tanh a
+// step, ~2.2 GFLOP a flagship tick) is bound by those products' dependent
+// sums at one lane a sample, 2.4 warps an SM at K = 10 240: its weights are
+// one buffer staged once a block in shared memory (every lane of a warp
+// reads the same weight, a broadcast), and splitting a product's
+// outputs over a lane group is the open lever (root PERF.md §7).
 //
 // Design. The rollout (generic_rollout.cuh, one instantiation per tile
 // family, LAST, ε route and lane group) runs the diff-drive rollout's
@@ -84,10 +90,15 @@ struct GenericGroups {
 // kGenericFewSamples samples when NX + NU ≤ 9 (no wider than the four-wheel
 // tile, the widest built-in family that takes 8) and 2 above, 2 past that
 // count; injected ε 1 (the rule of the unicycle and four-wheel tiles, whose
-// Euler steps are as cheap as most lifted ones). Tuning G for generated
-// steps is open (ROADMAP A7).
+// Euler steps are as cheap as most lifted ones). A functor that holds matrix
+// products (MACS > 0 multiply-adds a step) runs at G = 1 on every route: each
+// lane of a group repeats the whole step, and the products' multiply-adds
+// are most of it, where G > 1 buys only the draws and the window search.
+// Tuning G for generated steps is open (ROADMAP A7).
 template <class F>
-struct GenericRule : GenericGroups<(F::NX + F::NU <= 9 ? 8 : 2), 2, 1, 1> {};
+struct GenericRule
+    : GenericGroups<(F::MACS > 0 ? 1 : F::NX + F::NU <= 9 ? 8 : 2), (F::MACS > 0 ? 1 : 2), 1,
+                    1> {};
 template <>
 struct GenericRule<DmmUnicycleTile> : GenericGroups<8, 2, 2, 1> {};
 template <>
@@ -107,11 +118,19 @@ int generic_group(long long samples, bool gen) {
 
 // Shared memory of the rollout: u and a (T, NU each), the window's (x, y)
 // rows as float2 (8-byte aligned, since 2·NU·T floats lie before them) and
-// its other n_track − 2 columns, the (n_obs, 5) obstacles. The same floats
-// as the (W, n_track) window alone: ops/cuda/generic_tick.py check_staging.
+// its other n_track − 2 columns, the (n_obs, 5) obstacles: the same floats
+// as the (W, n_track) window alone, under kMaxSmemBytes
+// (ops/cuda/generic_tick.py check_staging); then a generated functor's
+// weights (at most 16 384 floats, user_tile.py MAX_WEIGHTS: 64 KB), past
+// 48 KB by the launch's opt-in (at most 112 KB of the H100's 227).
+template <class F>
+constexpr size_t generic_staged_weight_bytes() {
+  return static_cast<size_t>(F::WEIGHTS) * sizeof(float);
+}
 template <class F>
 size_t generic_smem_bytes(const DmmGenericArgs& p) {
-  return static_cast<size_t>(2 * F::NU * p.T + p.n_track * p.W + 5 * p.n_obs) * sizeof(float);
+  return static_cast<size_t>(2 * F::NU * p.T + p.n_track * p.W + 5 * p.n_obs) * sizeof(float) +
+         generic_staged_weight_bytes<F>();
 }
 
 template <int G, class F, bool LAST, bool GEN, bool CARRY>
@@ -134,16 +153,30 @@ __global__ void __launch_bounds__(kRolloutThreads) generic_rollout_kernel(DmmGen
     for (int c = 0; c < n_rest; ++c) srest[i * n_rest + c] = row[2 + c];
   }
   for (int i = threadIdx.x; i < 5 * p.n_obs; i += blockDim.x) sobs[i] = p.obstacles[i];
+  float* swts = sobs + 5 * p.n_obs;
+  if constexpr (F::WEIGHTS > 0)
+    for (int i = threadIdx.x; i < F::WEIGHTS; i += blockDim.x) swts[i] = __ldg(p.weights + i);
   __syncthreads();
   const int lane = threadIdx.x & (G - 1);
   const int k = static_cast<int>((static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / G);
   const bool active = k < p.K;
   int carried = 0;
-  const float S = dmm_generic_sample<G, F, LAST, GEN, CARRY>(p, active ? k : p.K - 1, lane,
-                                                             active, su, sa, sxy, srest, sobs,
-                                                             &carried);
+  const float S = dmm_generic_sample<G, F, LAST, GEN, CARRY>(
+      p, active ? k : p.K - 1, lane, active, su, sa, sxy, srest, sobs, swts, &carried);
   if (active && lane == 0) p.S[k] = S;
   if (CARRY) dmm_carry_max(carried, p.wp_adv);
+}
+
+// The instantiation's launch, past 48 KB of shared memory by its opt-in.
+template <int G, class F, bool LAST, bool GEN, bool CARRY>
+void launch_rollout_kernel(const DmmGenericArgs& p, unsigned blocks, size_t smem,
+                           cudaStream_t s) {
+  if (smem > 48 * 1024 &&
+      cudaFuncSetAttribute(generic_rollout_kernel<G, F, LAST, GEN, CARRY>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem)) != cudaSuccess)
+    return;  // the error stays for the launcher's cudaGetLastError
+  generic_rollout_kernel<G, F, LAST, GEN, CARRY><<<blocks, kRolloutThreads, smem, s>>>(p);
 }
 
 template <int G, class F, bool LAST, bool GEN>
@@ -151,9 +184,9 @@ void launch_rollout_g(const DmmGenericArgs& p, size_t smem, cudaStream_t s) {
   const long long threads = static_cast<long long>(p.K) * G;
   const unsigned blocks = static_cast<unsigned>((threads + kRolloutThreads - 1) / kRolloutThreads);
   if (p.carry_span > 0)
-    generic_rollout_kernel<G, F, LAST, GEN, true><<<blocks, kRolloutThreads, smem, s>>>(p);
+    launch_rollout_kernel<G, F, LAST, GEN, true>(p, blocks, smem, s);
   else
-    generic_rollout_kernel<G, F, LAST, GEN, false><<<blocks, kRolloutThreads, smem, s>>>(p);
+    launch_rollout_kernel<G, F, LAST, GEN, false>(p, blocks, smem, s);
 }
 
 // The rollout at the rule's G for the launch's samples and ε route.
@@ -178,8 +211,9 @@ cudaError_t launch_generic_rollout(const DmmGenericArgs& p, cudaStream_t s) {
   const size_t smem = generic_smem_bytes<F>(p);
   if (p.K <= 0 || p.K > (1 << 26) || p.T <= 0 || p.W <= 0 || p.n_track < 2 ||
       p.n_track > F::NX || p.n_obs < 0 || p.eps_mode < 0 || p.eps_mode > 2 ||
-      smem > kMaxSmemBytes || p.carry_span < 0 || p.carry_span > p.W ||
-      (p.carry_span > 0 && p.wp_adv == nullptr))
+      smem > kMaxSmemBytes + generic_staged_weight_bytes<F>() || p.carry_span < 0 ||
+      p.carry_span > p.W || (p.carry_span > 0 && p.wp_adv == nullptr) ||
+      (F::WEIGHTS > 0 && p.weights == nullptr))
     return cudaErrorInvalidValue;
   if (p.last_only) launch_rollout_last<F, true>(p, smem, s);
   else launch_rollout_last<F, false>(p, smem, s);

@@ -16,14 +16,17 @@
 // no row found: the reference (0, ..., 0)), and the furthest final start
 // over K goes to wp_adv.
 //
-// Tile steps are functors: a struct with static NX, NU, TAKES_T and a step
-// on register arrays, step(x, v), or step(x, v, t) with the int rollout step
-// t when TAKES_T; a built-in family reads its constants from
-// DmmGenericArgs::c in the order of the Python factory
-// (dnn_mppi_mpc_tpu_torch/models/tile.py). A library built with
-// -DDMM_USER_TILE also holds a functor generated from a traced tile step of
-// the user's (dnn_mppi_mpc_tpu_torch/ops/cuda/user_tile.py): the header
-// dmm_user_tile.cuh defines it as DmmUserTile, its constants baked in. The
+// Tile steps are functors: a struct with static NX, NU, TAKES_T, WEIGHTS, a
+// constructor F(c, w) and a step on register arrays,
+// step(x, v), or step(x, v, t) with the int rollout step t when TAKES_T; a
+// built-in family reads its constants from DmmGenericArgs::c in the order of
+// the Python factory (dnn_mppi_mpc_tpu_torch/models/tile.py). A library
+// built with -DDMM_USER_TILE also holds a functor generated from a traced
+// tile step of the user's (dnn_mppi_mpc_tpu_torch/ops/cuda/user_tile.py):
+// the header dmm_user_tile.cuh defines it as DmmUserTile, its constants baked
+// in; its weights (WEIGHTS > 0: its matrix products') it reads at w, the
+// WEIGHTS floats of DmmGenericArgs::weights, which the rollout stages in
+// shared memory. The
 // kernels are templates on the functor, so each compiles to its own rollout.
 //
 // Layout: the diff-drive rollout's (diffdrive_rollout.cuh). A group of G
@@ -71,6 +74,7 @@ struct DmmGenericArgs {
   const float* u_max;       // (NU,)
   const float* obstacles;   // (n_obs, 5) rows (x, y, r, vx, vy)
   const float* filter_t;    // (T, T) Fᵀ of the smoothing filter, or null
+  const float* weights;     // (F::WEIGHTS,) a generated functor's weights, or null
   // ε buffer (T, K, NU): read (eps_mode 0) or written (eps_mode 1)
   float* eps;
   // outputs
@@ -132,8 +136,9 @@ __device__ __forceinline__ float dmm_atan_poly(float x) {
 struct DmmUnicycleTile {
   static constexpr int NX = 3, NU = 2;
   static constexpr bool TAKES_T = false;
+  static constexpr int WEIGHTS = 0;
   float dt;
-  __device__ explicit DmmUnicycleTile(const float* c) : dt(c[0]) {}
+  __device__ DmmUnicycleTile(const float* c, const float*) : dt(c[0]) {}
   __device__ __forceinline__ void step(float* x, const float* v) const {
     float s, c;
     sincosf(x[2], &s, &c);
@@ -146,8 +151,9 @@ struct DmmUnicycleTile {
 struct DmmKinematicBicycleTile {
   static constexpr int NX = 4, NU = 2;
   static constexpr bool TAKES_T = false;
+  static constexpr int WEIGHTS = 0;
   float dt, inv_l;
-  __device__ explicit DmmKinematicBicycleTile(const float* c) : dt(c[0]), inv_l(c[1]) {}
+  __device__ DmmKinematicBicycleTile(const float* c, const float*) : dt(c[0]), inv_l(c[1]) {}
   __device__ __forceinline__ void step(float* x, const float* v) const {
     const float yaw = x[2], vel = x[3];
     float s, c;
@@ -162,8 +168,9 @@ struct DmmKinematicBicycleTile {
 struct DmmFourWheelTile {
   static constexpr int NX = 5, NU = 4;
   static constexpr bool TAKES_T = false;
+  static constexpr int WEIGHTS = 0;
   float dt, cv, cw;
-  __device__ explicit DmmFourWheelTile(const float* c) : dt(c[0]), cv(c[1]), cw(c[2]) {}
+  __device__ DmmFourWheelTile(const float* c, const float*) : dt(c[0]), cv(c[1]), cw(c[2]) {}
   __device__ __forceinline__ void step(float* x, const float* v) const {
     const float theta = x[2], vel = x[3], omega = x[4];
     float s, c;
@@ -179,8 +186,9 @@ struct DmmFourWheelTile {
 struct DmmDynamicBicycleTile {
   static constexpr int NX = 4, NU = 2;
   static constexpr bool TAKES_T = false;
+  static constexpr int WEIGHTS = 0;
   float dt, beta_gain, lf, lr, cf, cr, inv_m;
-  __device__ explicit DmmDynamicBicycleTile(const float* c)
+  __device__ DmmDynamicBicycleTile(const float* c, const float*)
       : dt(c[0]), beta_gain(c[1]), lf(c[2]), lr(c[3]), cf(c[4]), cr(c[5]), inv_m(c[6]) {}
   __device__ __forceinline__ void step(float* x, const float* v) const {
     const float yaw = x[2], vel = x[3];
@@ -232,6 +240,7 @@ __device__ __forceinline__ float dmm_user_exp(float x) { return expf(x); }
 __device__ __forceinline__ float dmm_user_log(float x) { return logf(x); }
 __device__ __forceinline__ float dmm_user_tanh(float x) { return tanhf(x); }
 __device__ __forceinline__ float dmm_user_pow(float x, float e) { return powf(x, e); }
+__device__ __forceinline__ float dmm_user_sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
 #endif
 
 #ifdef DMM_USER_TILE
@@ -321,13 +330,14 @@ __device__ __forceinline__ void dmm_generic_eps_row(const float* at, float* e) {
 // rows and other columns and the obstacles. GEN draws ε from the hash stream
 // (one block of K samples, seed p.seed[0]) and, when p.eps_mode == 1, stores
 // it to p.eps. CARRY carries the window start (p.carry_span > 0) and leaves
-// the final one at `carried`.
+// the final one at `carried`. `wts` is the functor's weights, staged in
+// shared memory.
 template <int G, class F, bool LAST, bool GEN, bool CARRY>
 __device__ __forceinline__ float dmm_generic_sample(
     const DmmGenericArgs& p, int k, int lane, bool active, const float* su, const float* sa,
-    const float2* sxy, const float* srest, const float* sobs, int* carried) {
+    const float2* sxy, const float* srest, const float* sobs, const float* wts, int* carried) {
   constexpr int NX = F::NX, NU = F::NU;
-  const F f(p.c);
+  const F f(p.c, wts);
   const int T = p.T, K = p.K;
   float umin[NU], umax[NU];
 #pragma unroll

@@ -31,6 +31,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..config import resolve_device
 from .dynamics import DynamicBicycleParams, FourWheelParams
 
 Tiles = Tuple[torch.Tensor, ...]
@@ -231,14 +232,22 @@ def lift_dynamics(dynamics_step: Callable[[torch.Tensor, torch.Tensor], torch.Te
     launch), on CPU tensors the plain version runs F itself.
 
     F may use elementwise add, sub, mul, div, neg, pow by a number, sin,
-    cos, tan, atan, atan2, exp, log, sqrt, tanh, abs, floor, minimum,
-    maximum, clamp, comparisons, logical ops, where, full_like / zeros_like /
-    ones_like, Python numbers and captured scalar tensors, and select, slice,
-    stack, cat, unsqueeze, expand and unbind on the last axis — what
-    ``models/dynamics.py`` with ``euler_step`` or ``rk4_step`` writes. A
-    matrix product (a learned residual), a linear solve (``irk_step``), a
-    reduction, or Python control flow on a tensor's value raises
-    ``ValueError`` on the card, naming the op."""
+    cos, tan, atan, atan2, exp, log, sqrt, tanh, sigmoid, relu, abs, floor,
+    minimum, maximum, clamp, comparisons, logical ops, where, full_like /
+    zeros_like / ones_like, Python numbers and captured scalar tensors, and
+    select, slice, stack, cat, unsqueeze, expand and unbind on the last axis —
+    what ``models/dynamics.py`` with ``euler_step`` or ``rk4_step`` writes —,
+    and matrix products of a (K, n) block by captured float32 weights
+    (``x @ A.T``, ``torch.nn.functional.linear``, ``addmm``, ``nn.Linear``: a
+    linear model or a learned residual, :func:`lift_linear`,
+    :func:`lift_mlp_residual`), summed in k order, up to
+    ``user_tile.MAX_WEIGHTS`` (16 384) weight values. The card route copies
+    the captured weights into one device buffer at the step's first launch,
+    and again at a launch after one changed in place (its version counter or
+    storage moved, as an optimizer step or ``load_state_dict`` moves them; a
+    write through ``.data`` is not seen). A step past that limit, a linear solve
+    (``irk_step``), a reduction, or Python control flow on a tensor's value
+    raises ``ValueError`` on the card, naming the op or the count."""
 
     def step(xs, vs):
         y = dynamics_step(torch.stack(xs, dim=-1), torch.stack(vs, dim=-1))
@@ -264,6 +273,48 @@ def lift_dynamics_time_varying(
     return TileStep(None, None, None, (), True, step)
 
 
+def _weights(a, device) -> torch.Tensor:
+    return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=device)
+
+
+def lift_linear(A, B, dt: float, *, device="cuda") -> TileStep:
+    """:func:`lift_dynamics` of the linear step x' = x + (x Aᵀ + u Bᵀ)·dt,
+    from ``A`` (nx, nx) and ``B`` (nx, nu) given as numpy arrays (the
+    JAX package's random-linear step, tests/test_generic_tick.py:420-422),
+    kept as float32 tensors on ``device`` (default the card): on the card
+    the generated functor reads them from its weight buffer."""
+    A_, B_ = _weights(A, resolve_device(device)), _weights(B, resolve_device(device))
+
+    def step(x, u):
+        return x + (x @ A_.T + u @ B_.T) * dt
+
+    return lift_dynamics(step)
+
+
+def lift_mlp_residual(nominal: Callable, layers: Sequence, *, activation: str = "tanh",
+                      device="cuda") -> TileStep:
+    """:func:`lift_dynamics` of x' = F₀(x, u) + f_θ([x, u]): ``nominal``
+    F₀ on (K, nx) and (K, nu) batches, f_θ an MLP given as numpy (W, b) per
+    layer, W (n_in, n_out) as a Flax ``Dense`` kernel, ``activation``
+    (``"tanh"`` or ``"relu"``) after every layer but the last. The weights
+    are float32 tensors on ``device`` (default the card), each layer a
+    ``torch.nn.functional.linear``."""
+    act = {"tanh": torch.tanh, "relu": torch.relu}[activation]
+    dev = resolve_device(device)
+    params = [(_weights(np.asarray(W).T, dev), _weights(b, dev)) for W, b in layers]
+
+    def step(x, u):
+        y = nominal(x, u)
+        h = torch.cat([x, u], -1)
+        for i, (Wt, b) in enumerate(params):
+            h = torch.nn.functional.linear(h, Wt, b)
+            if i + 1 < len(params):
+                h = act(h)
+        return y + h
+
+    return lift_dynamics(step)
+
+
 __all__ = [
     "FAMILIES",
     "TileStep",
@@ -273,5 +324,7 @@ __all__ = [
     "kinematic_bicycle_tile",
     "lift_dynamics",
     "lift_dynamics_time_varying",
+    "lift_linear",
+    "lift_mlp_residual",
     "unicycle_tile",
 ]

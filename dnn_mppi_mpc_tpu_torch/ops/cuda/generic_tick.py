@@ -43,6 +43,7 @@ same results).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Callable, Optional
 
@@ -123,13 +124,19 @@ def kernel_model(step_tile, step_takes_t: bool, nx: Optional[int] = None,
     return FAMILIES.index(family)
 
 
-def _kernels(step_tile, step_takes_t: bool, nx: int, nu: int):
-    """(the ``model`` field, the library that runs it: the package's for a
-    built-in family, None then, or the generated functor's own)."""
+def _kernels(step_tile, step_takes_t: bool, nx: int, nu: int, device: torch.device):
+    """(the ``model`` field, the library that runs it — the package's for a
+    built-in family, None then, or the generated functor's own —, and the
+    functor's weights on ``device``, None where it has none to read)."""
     model = kernel_model(step_tile, step_takes_t, nx, nu)
     if model != USER_MODEL:
-        return model, None
-    return model, load_user_kernels(user_tile.lower(step_tile, nx, nu, step_takes_t).header)
+        return model, None, None
+    tile = user_tile.lower(step_tile, nx, nu, step_takes_t)
+    return model, load_user_kernels(tile.header), user_tile.weight_buffer(tile, device)
+
+
+def _pointer(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.data_ptr()
 
 
 def _constants(step_tile) -> ctypes.Array:
@@ -200,7 +207,10 @@ def generic_rollout_body_plain(
     carry_W: int = 0,
 ):
     """Per-sample costs S (K,) — the plain twin of ``dmm_generic_sample`` in
-    csrc/generic_rollout.cuh (same operations in the same order). With
+    csrc/generic_rollout.cuh (same operations in the same order; a step of
+    no built-in family sums its matrix products in its generated functor's
+    order up to the weights a functor holds, ``user_tile.functor_order``,
+    which trades the CPU's speed for the kernel's rounding). With
     ``carry_W`` > 0 (waypoint_carry="rollout") returns ``(S, final carried
     starts (K,) int64)``."""
     K, T, nu = eps.shape
@@ -212,6 +222,9 @@ def generic_rollout_body_plain(
     n_obs = 0 if obstacles is None else obstacles.shape[0]
     # the kernel's t: the int32 rollout step, a 0-d tensor on the samples' device
     steps = torch.arange(T, dtype=torch.int32, device=eps.device) if step_takes_t else None
+    # a generated functor's products sum in k order: so do the twin's
+    order = (user_tile.functor_order() if getattr(step_tile, "family", None) is None
+             else contextlib.nullcontext())
     for t in range(T):
         vs, energy = [], None
         for j in range(nu):
@@ -220,8 +233,9 @@ def generic_rollout_body_plain(
             vs.append(v)
             term = a[t, j] * v
             energy = term if energy is None else energy + term
-        xs = tuple(step_tile(xs, tuple(vs), steps[t]) if step_takes_t
-                   else step_tile(xs, tuple(vs)))
+        with order:
+            xs = tuple(step_tile(xs, tuple(vs), steps[t]) if step_takes_t
+                       else step_tile(xs, tuple(vs)))
         if len(xs) != x0.shape[0]:
             raise ValueError(f"the tile step returned {len(xs)} state dims, expected {x0.shape[0]}")
         if carry_W:
@@ -352,8 +366,8 @@ def launch_generic_rollout(
     on injected ε (K_local, T, nu), from the step's library. Returns S
     (K_local,)."""
     _check_args(step_tile, nx, nu, n_track, window, collision)
-    model, kernels = _kernels(step_tile, step_takes_t, nx, nu)
     dev = u.device
+    model, kernels, weights = _kernels(step_tile, step_takes_t, nx, nu, dev)
     K = eps.shape[0]
     check("eps", eps, (K, T, nu), dev)
     eps_t = eps.transpose(0, 1).contiguous()  # (T, K, nu): coalesced per step
@@ -368,8 +382,8 @@ def launch_generic_rollout(
         wrap_yaw=wrap_yaw, last_only=last_only, collision=collision,
     )
     launch("dmm_generic_rollout_costs",
-           DmmGenericArgs(eps=eps_t.data_ptr(), S=S.data_ptr(), eps_mode=0, **fields), dev,
-           kernels)
+           DmmGenericArgs(eps=eps_t.data_ptr(), S=S.data_ptr(), eps_mode=0,
+                          weights=_pointer(weights), **fields), dev, kernels)
     del held  # the launch is enqueued: the allocator orders any reuse after it
     return S
 
@@ -492,8 +506,8 @@ def launch_generic_tick(
     when ε is drawn again). A generated functor's step runs from its own
     library."""
     _check_args(step_tile, nx, nu, n_track, window, collision)
-    model, kernels = _kernels(step_tile, step_takes_t, nx, nu)
     dev = u.device
+    model, kernels, weights = _kernels(step_tile, step_takes_t, nx, nu, dev)
     fields, held = _fill_args(
         model=model, step_tile=step_tile, u=u, a=a, x0=x0, window=window,
         stage_w=stage_w, term_w=term_w, u_min=u_min, u_max=u_max, dt=dt, n_exploit=n_exploit,
@@ -529,7 +543,7 @@ def launch_generic_tick(
         chol=check("chol_sigma", chol_sigma, (nu, nu), dev),
         eps=0 if eps_buf is None else eps_buf.data_ptr(),
         eps_mode=eps_mode, inv_temp=f32(inv_temperature),
-        fuse_epilogue=int(filter_t is not None), scratch_floats=n,
+        fuse_epilogue=int(filter_t is not None), scratch_floats=n, weights=_pointer(weights),
         **{name: t.data_ptr() for name, t in out.items()}, **fields,
     ), dev, kernels)
     del held  # the launch is enqueued: the allocator orders any reuse after it

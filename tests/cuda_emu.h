@@ -238,15 +238,16 @@ inline T __ldg(const T* p) {
 
 // The float transcendentals of the plain versions: a test points emu_math
 // at PyTorch's (op 0 sin, 1 cos, 2 tan, 3 atan, 4 atan2(x, y), 5 exp, 6 log,
-// 7 tanh, 8 pow(x, y); y is 0 for a function of one argument) so that a
+// 7 tanh, 8 pow(x, y), 9 sigmoid; y is 0 for a function of one argument) so that a
 // kernel's source rounds like its plain version on the CPU; null, the C
 // library's. Its results are kept by argument, since the lanes of a group
 // ask for the same ones.
+// (emitted even where the kernel calls none of them, as a linear step's)
 extern "C" {
-inline float (*emu_math)(int, float, float) = nullptr;
+[[gnu::used]] inline float (*emu_math)(int, float, float) = nullptr;
 }
 inline float emu_math_of(int op, float x, float y = 0.0f) {
-  static std::unordered_map<uint64_t, float> known[9];
+  static std::unordered_map<uint64_t, float> known[10];
   uint32_t bx, by;
   std::memcpy(&bx, &x, 4);
   std::memcpy(&by, &y, 4);
@@ -279,6 +280,9 @@ inline float dmm_user_log(float x) { return emu_math ? emu_math_of(6, x) : ::log
 inline float dmm_user_tanh(float x) { return emu_math ? emu_math_of(7, x) : ::tanhf(x); }
 inline float dmm_user_pow(float x, float e) {
   return emu_math ? emu_math_of(8, x, e) : ::powf(x, e);
+}
+inline float dmm_user_sigmoid(float x) {
+  return emu_math ? emu_math_of(9, x) : 1.0f / (1.0f + ::expf(-x));
 }
 
 inline dim3 emu_dim(dim3 d) { return d; }

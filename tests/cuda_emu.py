@@ -9,8 +9,8 @@ then compiled with g++ (``-ffp-contract=off``, as nvcc's ``-fmad=false``;
 ``defines`` as ``-D`` flags, ``headers`` written beside the sources, as the
 generated tile step's ``dmm_user_tile.cuh``) into one shared library.
 :func:`torch_math` hands the library PyTorch's float sin, cos and tan, and
-the atan, atan2, exp, log, tanh and pow a generated tile step calls: the
-plain versions' own.
+the atan, atan2, exp, log, tanh, pow and sigmoid a generated tile step
+calls: the plain versions' own.
 """
 
 from __future__ import annotations
@@ -61,7 +61,10 @@ def build(names: list[str], work: Path, defines: tuple = (),
 
 
 _OPS = (torch.sin, torch.cos, torch.tan, torch.atan, torch.atan2, torch.exp, torch.log,
-        torch.tanh, torch.pow)
+        torch.tanh, torch.pow, torch.sigmoid)
+# sigmoid rounds otherwise for an element alone than inside a tensor on the
+# CPU: it is taken inside a tensor of this many copies, as the twin's lanes are
+_SIGMOID_COPIES = 64
 
 
 @ctypes.CFUNCTYPE(ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_float)
@@ -71,11 +74,14 @@ def _torch_op(op, x, y):
         return torch.atan2(xt, torch.tensor([y], dtype=torch.float32)).item()
     if op == 8:
         return torch.pow(xt, y).item()
+    if op == 9:
+        return torch.sigmoid(xt.expand(_SIGMOID_COPIES).contiguous())[0].item()
     return _OPS[op](xt).item()
 
 
 def torch_math(lib: ctypes.CDLL) -> None:
     """Point the library's sincosf and tanf, and the atan, atan2, exp, log,
-    tanh and pow of a generated tile step, at PyTorch's (torch gives the same
-    bits for an element alone as inside a tensor for all but atan2 and pow)."""
+    tanh, pow and sigmoid of a generated tile step, at PyTorch's (torch gives
+    the same bits for an element alone as inside a tensor for all but atan2,
+    pow and sigmoid; sigmoid is taken inside a tensor)."""
     ctypes.c_void_p.in_dll(lib, "emu_math").value = ctypes.cast(_torch_op, ctypes.c_void_p).value

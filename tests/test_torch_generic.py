@@ -411,12 +411,13 @@ def test_sigma_factors_are_computed_once_per_params_object():
 
 def test_kernel_refuses_what_it_cannot_run():
     """A lifted step runs on the card as a generated functor (model
-    USER_MODEL); one with an op the tracer cannot lower makes the check that
-    guards the CUDA launch raise, naming the op. A built-in family called
-    with step_takes_t raises. The split generic rollout has no per-rollout
-    carry (the tick has it, as in JAX): its binder raises."""
-    weights = torch.eye(5)
-    lifted = ttile.lift_dynamics(lambda x, u: x + x @ weights)
+    USER_MODEL); one the tracer cannot lower (here a matrix product past the
+    functor's weight limit) makes the check that guards the CUDA launch
+    raise, naming the op. A built-in family called with step_takes_t
+    raises. The split generic rollout has no per-rollout carry (the tick
+    has it, as in JAX): its binder raises."""
+    weights = torch.zeros(5, 4000)
+    lifted = ttile.lift_dynamics(lambda x, u: x + (x @ weights)[..., :5])
     with pytest.raises(ValueError, match="aten.mm"):
         kern.generic_tick.kernel_model(lifted, False, 5, 4)
     assert kern.generic_tick.kernel_model(ttile.lift_dynamics(lambda x, u: x), False, 5,

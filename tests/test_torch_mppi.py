@@ -395,6 +395,11 @@ DEVICE_DEFAULTS = {
     "MPPISolver": lambda device: _flag_solver(**device),
     "MPPISolver (lift_dynamics)": lambda device: _lifted_solver(False, **device),
     "MPPISolver (lift_dynamics_time_varying)": lambda device: _lifted_solver(True, **device),
+    "models.lift_linear": lambda device: _tile().lift_linear(np.eye(3), np.ones((3, 2)), 0.1,
+                                                             **device),
+    "models.lift_mlp_residual": lambda device: _tile().lift_mlp_residual(
+        lambda x, u: x, [(np.ones((5, 4)), np.zeros(4)), (np.ones((4, 3)), np.zeros(3))],
+        **device),
     "MPPIState.init": lambda device: tmppi.MPPIState.init(_flag()[0], **device),
     "presets.flagship": lambda device: presets.flagship(1024, 20, **device),
     "presets.racecar_mppi": lambda device: presets.racecar_mppi(
@@ -475,6 +480,12 @@ def _envs():
     from dnn_mppi_mpc_tpu_torch import envs
 
     return envs
+
+
+def _tile():
+    from dnn_mppi_mpc_tpu_torch.models import tile
+
+    return tile
 
 
 def _learned():

@@ -28,6 +28,19 @@ rounds otherwise inside a tensor than for an element alone, so the
 emulator cannot match them bit for bit) holds S within 16 float32 ulps of
 the plain twin's. Forced lane groups G = 1 and 8 give the shipped rule's S.
 
+Matrix products (``user_tile``'s lowering): ``lift_linear`` at the
+four-wheel example's widths (45 weights), ``lift_mlp_residual`` of the
+Euler unicycle with a 5→16→16→3 tanh residual (419 weights) and two
+5→32→32→3 ones of other weights (1 347 each, one header), and relu,
+sigmoid and where after a product, every weight read from the step's device
+buffer, staged in shared memory: S bit for bit against the plain twins in
+every case above (the twin's products sum in the functor's order,
+``user_tile.functor_order``); G = 1 on every route; the packed buffer
+reaches the launch, and is packed again after a residual net is trained in
+place, with the same library. The linear and the narrow MLP kernels in
+the solver against JAX's interpret-mode tick: S, u and the optimal
+trajectory within 1e-5.
+
 Parity with JAX: ``MPPISolver(fused_tick=True, tile_dynamics=lift_dynamics(...),
 device="cpu")`` with the generic tick routed to the emulated kernel against
 JAX's ``mppi_step`` with ``make_generic_fused_tick(lift_dynamics(...),
@@ -68,6 +81,12 @@ from dnn_mppi_mpc_tpu_torch.ops.cuda import generic_tick as gt
 from dnn_mppi_mpc_tpu_torch.ops.cuda import user_tile
 from dnn_mppi_mpc_tpu_torch.solvers import mppi as tmppi
 from test_time_varying import dyn_tv as j_dyn_tv
+from test_torch_user_tile import (
+    check_product_parity,
+    mlp_params,
+    product_problem,
+    run_product_parity,
+)
 
 T, DT, SEED = 6, 0.05, 0x5EED1E
 ULPS = 16  # the "every op" step: S within this many float32 ulps of |S|
@@ -111,6 +130,25 @@ def every_op(xs, vs, t):
     return nx_, ny_, yaw_n, pos[..., 0:1].squeeze(-1) * 0.0 + v_n
 
 
+_B = torch.tensor(np.random.default_rng(4).normal(0.0, 0.5, (3, 4)), dtype=torch.float32)
+
+
+def activations(x, u):
+    """relu, sigmoid and where after a product (x @ B, B (3, 4) captured)."""
+    h = x @ _B
+    return x + 0.05 * torch.where(h[..., :3] > 0.0, torch.sigmoid(h)[..., 1:],
+                                  torch.relu(h)[..., :3]) * u[..., :1]
+
+
+def _nominal(x, u):
+    return euler_step(tdyn.unicycle, x, u, DT)
+
+
+# two 5→32→32→3 residuals (1 347 weights each) of other weights: one header
+MLP_32 = ttile.lift_mlp_residual(_nominal, mlp_params([5, 32, 32, 3], seed=32), device="cpu")
+MLP_32_RESEEDED = ttile.lift_mlp_residual(_nominal, mlp_params([5, 32, 32, 3], seed=33),
+                                          device="cpu")
+
 # name -> (tile step, nx, nu, x0)
 STEPS = {
     "unicycle euler": (ttile.lift_dynamics(lambda x, u: euler_step(tdyn.unicycle, x, u, DT)),
@@ -126,7 +164,14 @@ STEPS = {
     "dyn_tv": (ttile.lift_dynamics_time_varying(t_dyn_tv), 3, 2, [0.05, -0.02, 0.3]),
     "every op": (ttile.TileStep(None, None, None, (), True, every_op), 4, 2,
                  [0.05, -0.02, 0.3, 0.9]),
+    "linear 5x4": (product_problem("linear 5 4")[4], 5, 4, [0.05, -0.02, 0.3, 0.9, 0.1]),
+    "mlp residual": (product_problem("mlp 16")[4], 3, 2, [0.05, -0.02, 0.3]),
+    "mlp residual 32": (MLP_32, 3, 2, [0.05, -0.02, 0.3]),
+    "mlp residual 32 reseeded": (MLP_32_RESEEDED, 3, 2, [0.05, -0.02, 0.3]),
+    "activations": (ttile.lift_dynamics(activations), 3, 2, [0.05, -0.02, 0.3]),
 }
+PRODUCTS = ["linear 5x4", "mlp residual", "mlp residual 32", "mlp residual 32 reseeded",
+            "activations"]
 BIT_EQUAL = [name for name in STEPS if name != "every op"]
 BUILDS = {**{name: () for name in STEPS},
           **{f"unicycle euler G{g}": (f"DMM_GENERIC_GROUP={g}",) for g in (1, 8)}}
@@ -153,6 +198,8 @@ def libs(tmp_path_factory):
         _build._declare_generic(lib)
         return lib
 
+    assert user_tile.lower(MLP_32, 3, 2, False).header == \
+        user_tile.lower(MLP_32_RESEEDED, 3, 2, False).header
     with ThreadPoolExecutor(len(BUILDS)) as pool:
         futures = {name: pool.submit(build, name, user_tile.lower(
             _step(name)[0], *_step(name)[1:3], _step(name)[0].takes_t).header)
@@ -377,6 +424,94 @@ def test_the_rule_of_a_generated_functor(libs):
             assert gt.rollout_group(None, n, False, lib) == 1
         assert lib.dmm_generic_group(0, 2048, 1) == -1
         assert lib.dmm_generic_args_size() == ctypes.sizeof(_build.DmmGenericArgs)
+
+
+@pytest.mark.parametrize("name", PRODUCTS)
+def test_the_rule_of_a_functor_with_products(libs, name):
+    """A generated functor that holds matrix products runs at G = 1 on every
+    route and sample count; its header states its multiply-adds."""
+    step, nx, nu, _ = STEPS[name]
+    low = user_tile.lower(step, nx, nu, False)
+    assert low.macs > 0 and f"MACS = {low.macs};" in low.header
+    for n in (128, 2048, 4096, 4097, 10240):
+        for hash_eps in (True, False):
+            assert gt.rollout_group(None, n, hash_eps, libs[name]) == 1
+
+
+def test_the_weights_reach_the_launch(libs, monkeypatch):
+    """Each functor with weights gets its step's packed buffer as
+    DmmGenericArgs::weights (two nets of one header, each its own); a
+    functor without weights gets null; a library with weights refuses a
+    launch without them."""
+    seen = {}
+    for name in ("mlp residual 32", "mlp residual 32 reseeded", "linear 5x4", "unicycle euler"):
+        captured = {}
+        monkeypatch.setattr(gt, "launch", lambda e, args, device, kernels=None:
+                            captured.update(args=args))
+        monkeypatch.setattr(gt, "load_user_kernels", lambda header, lib=libs[name]: lib)
+        p = _inputs(name, 128)
+        _tick(p, _kw(name, p), K=128, inject=True)
+        seen[name] = captured["args"]
+    for name in ("mlp residual 32", "mlp residual 32 reseeded", "linear 5x4"):
+        step, nx, nu, _ = STEPS[name]
+        buf = user_tile.weight_buffer(user_tile.lower(step, nx, nu, False), torch.device("cpu"))
+        assert seen[name].weights == buf.data_ptr()
+    assert not seen["unicycle euler"].weights
+    args = seen["mlp residual 32"]
+    args.weights = None
+    assert libs["mlp residual 32"].dmm_generic_tick(ctypes.addressof(args), None) != 0
+
+
+def test_a_net_trained_in_place_runs_its_new_weights(libs):
+    """An nn.Sequential residual of the narrow MLP's header on row 9: after
+    an optimizer step on its weights the same library runs the new weights
+    (the buffer packed again), S bit for bit against the plain twin before
+    and after."""
+    layers = mlp_params([5, 16, 16, 3], seed=16)
+    net = torch.nn.Sequential(torch.nn.Linear(5, 16), torch.nn.Tanh(), torch.nn.Linear(16, 16),
+                              torch.nn.Tanh(), torch.nn.Linear(16, 3))
+    with torch.no_grad():
+        for lin, (W, b) in zip(net[::2], layers):
+            lin.weight.copy_(torch.as_tensor(W.T))
+            lin.bias.copy_(torch.as_tensor(b))
+    step = ttile.lift_dynamics(lambda x, u: _nominal(x, u) + net(torch.cat([x, u], -1)))
+    assert user_tile.lower(step, 3, 2, False).header == \
+        user_tile.lower(STEPS["mlp residual"][0], 3, 2, False).header
+    p = _inputs("mlp residual", K_SPLIT, seed=3)
+    kw = dict(_kw("mlp residual", p), step_tile=step)
+    costs = []
+    for _ in range(2):
+        with running_on(libs["mlp residual"]):
+            got = gt.launch_generic_rollout(eps=p["eps"], **{k: p[k] for k in ROLL}, **kw)
+        args = dict(kw)
+        want = gt.generic_rollout_costs_plain(
+            p["eps"], *(p[k] for k in ROLL), *(args.pop(k) for k in (
+                "dt", "n_exploit", "obstacles", "robot_radius", "safety_margin_rate",
+                "obstacle_velocities", "soft_safety_distance", "soft_weight", "k_offset")),
+            **args)
+        torch.testing.assert_close(got, want, rtol=0.0, atol=0.0)
+        costs.append(got)
+        opt = torch.optim.SGD(net.parameters(), lr=0.5)
+        net(torch.ones(4, 5)).square().sum().backward()
+        opt.step()
+    assert not torch.equal(costs[0], costs[1])
+
+
+@pytest.mark.parametrize("name, case", [("linear 5x4", "linear 5 4"), ("mlp residual", "mlp 16")])
+def test_product_kernel_matches_jax_generic_tick(libs, name, case):
+    """The emulated generated kernel of a step with matrix products inside
+    ``MPPISolver(fused_tick=True, tile_dynamics=...)`` against JAX's
+    interpret-mode generic tick on the same numpy noise (the problem of
+    tests/test_torch_user_tile.py): S, u and the optimal trajectory within
+    1e-5."""
+    t_tile = product_problem(case)[4]
+    assert user_tile.lower(t_tile, *STEPS[name][1:3], False).header == \
+        user_tile.lower(*STEPS[name][:3], False).header
+    with running_on(libs[name], every_call_on_card=True):
+        gt.generic_mppi_tick.launches = 0
+        j_out, t_out = run_product_parity(case, "8")
+        assert gt.generic_mppi_tick.launches == 1
+    check_product_parity(j_out, t_out)
 
 
 def test_a_generated_library_refuses_a_built_in_family(libs, monkeypatch):
