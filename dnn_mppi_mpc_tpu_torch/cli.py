@@ -17,8 +17,9 @@ Every command prints one machine-readable JSON line as its last stdout line
 default) and raises without one unless given ``--device cpu``, where the
 kernels' plain versions run. ``--fused`` binds the hand-written CUDA ticks
 (the diff-drive or race-car fused tick; for the NMPC demos the fused QP
-kernel) and needs the card. ``demo --out`` raises: plotting is left out of
-the port (ROADMAP A0).
+kernel) and needs the card. ``demo --out DIR`` writes the trajectory and
+control plots as PNGs (``utils/plotting.py``, matplotlib's Agg backend); on
+a host without matplotlib it raises ``ImportError`` before the demo runs.
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
+import sys
 import time
 from typing import Optional
 
@@ -37,6 +40,10 @@ from . import __version__
 
 def _emit(payload: dict) -> None:
     print(json.dumps(payload), flush=True)
+
+
+def _say(msg: str) -> None:
+    print(msg, file=sys.stderr, flush=True)
 
 
 def _device(args: argparse.Namespace) -> torch.device:
@@ -100,7 +107,7 @@ def _demo_diff_drive_mppi(args, dev):
     solver, params = presets.diff_drive_mppi(
         _line_path(dev), num_samples=args.samples, horizon=args.horizon, obstacles=obstacles,
         fused_tick=args.fused, compute_optimal_traj=False, device=dev, **lookahead)
-    return solver, params, "mppi", torch.zeros(3, device=dev)
+    return solver, params, "mppi", torch.zeros(3, device=dev), obstacles
 
 
 def _demo_racecar_mppi(args, dev):
@@ -112,7 +119,7 @@ def _demo_racecar_mppi(args, dev):
         ref, num_samples=args.samples, horizon=max(args.horizon, 20), fused_tick=args.fused,
         compute_optimal_traj=False, device=dev)
     x0 = torch.tensor([20.0, 0.0, float(np.float32(np.pi / 2)), 2.0], device=dev)
-    return solver, params, "mppi", x0
+    return solver, params, "mppi", x0, None
 
 
 def _demo_goal_seeking_mppi(args, dev):
@@ -121,7 +128,7 @@ def _demo_goal_seeking_mppi(args, dev):
     solver, params = presets.goal_seeking_mppi(
         [6.0, 6.0, 0.0], num_samples=args.samples, horizon=max(args.horizon, 25),
         fused_tick=args.fused, device=dev)
-    return solver, params, "mppi", torch.zeros(3, device=dev)
+    return solver, params, "mppi", torch.zeros(3, device=dev), params.obstacles
 
 
 def _nmpc_backend(args) -> dict:
@@ -135,7 +142,7 @@ def _demo_diff_drive_nmpc(args, dev):
     obstacles = [[2.0, 1.2, 0.7]] if args.obstacles else None
     solver, params = presets.diff_drive_nmpc([4.0, 2.5, 0.0], obstacles=obstacles, device=dev,
                                              **_nmpc_backend(args))
-    return solver, params, "nmpc", torch.zeros(3, device=dev)
+    return solver, params, "nmpc", torch.zeros(3, device=dev), obstacles
 
 
 def _demo_racecar_nmpc(args, dev):
@@ -143,7 +150,7 @@ def _demo_racecar_nmpc(args, dev):
 
     solver, params = presets.racecar_nmpc([5.0, 3.0, 0.0, 0.0], device=dev,
                                           **_nmpc_backend(args))
-    return solver, params, "nmpc", torch.zeros(4, device=dev)
+    return solver, params, "nmpc", torch.zeros(4, device=dev), None
 
 
 def _demo_four_wheel_nmpc(args, dev):
@@ -151,7 +158,7 @@ def _demo_four_wheel_nmpc(args, dev):
 
     solver, params = presets.four_wheel_nmpc([2.0, 1.0, 0.0, 0.0, 0.0], device=dev,
                                              **_nmpc_backend(args))
-    return solver, params, "nmpc", torch.zeros(5, device=dev)
+    return solver, params, "nmpc", torch.zeros(5, device=dev), None
 
 
 _DEMOS = {
@@ -167,17 +174,17 @@ _DEMOS = {
 def cmd_demo(args: argparse.Namespace) -> None:
     """A closed-loop demo through ``run_closed_loop``: the controller's
     first tick runs once before the timed episode (the kernels' build and
-    first launches), then ``--ticks`` ticks of controller and plant."""
+    first launches), then ``--ticks`` ticks of controller and plant; with
+    ``--out`` the trajectory and control plots of the episode as PNGs."""
     from .envs.closed_loop import mppi_controller, nmpc_controller, run_closed_loop
 
     if args.out:
-        raise RuntimeError("demo --out writes trajectory and control plots, and plotting is "
-                           "left out of the port (no matplotlib on the card's host; ROADMAP "
-                           "A0): drop --out, the JSON line carries the demo's numbers")
+        # needs matplotlib: without it this raises, before the demo runs
+        from .utils.plotting import plot_controls, plot_trajectory
     if args.lookahead and args.name != "diff-drive-mppi":
         raise RuntimeError("--lookahead is the diff-drive-mppi demo's option")
     dev = _device(args)
-    solver, params, kind, x0 = _DEMOS[args.name](args, dev)
+    solver, params, kind, x0, obstacles = _DEMOS[args.name](args, dev)
     dt = float(solver.cfg.dt)
     if kind == "mppi":
         controller = mppi_controller(solver, params)
@@ -213,6 +220,18 @@ def cmd_demo(args: argparse.Namespace) -> None:
     if ref_path is not None:
         d = np.linalg.norm(ref_path[None, :, :2] - states[:, None, :2], axis=-1)
         cross_track = float(d.min(axis=1).max())  # the worst nearest-path distance
+    artifacts = []
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        traj_png = os.path.join(args.out, f"{args.name}_trajectory.png")
+        ctrl_png = os.path.join(args.out, f"{args.name}_controls.png")
+        if isinstance(obstacles, torch.Tensor):
+            obstacles = obstacles.cpu().numpy()
+        plot_trajectory(traj_png, states, ref_path=ref_path, obstacles=obstacles,
+                        title=args.name)
+        plot_controls(ctrl_png, controls, dt)
+        artifacts = [traj_png, ctrl_png]
+        _say(f"wrote {traj_png}, {ctrl_png}")
     _emit({
         "demo": args.name,
         "kind": kind,
@@ -229,7 +248,7 @@ def cmd_demo(args: argparse.Namespace) -> None:
         "ticks_per_s": args.ticks / wall,
         "realtime_factor": args.ticks * dt / wall,
         "finite": bool(np.isfinite(states).all()),
-        "artifacts": [],
+        "artifacts": artifacts,
     })
 
 
@@ -451,7 +470,8 @@ def build_parser() -> argparse.ArgumentParser:
                    "fused tick with --fused)")
     d.add_argument("--seed", type=int, default=0)
     d.add_argument("--out", default=None,
-                   help="plots are left out of the port: giving it raises")
+                   help="directory for the trajectory and control plots (PNG; needs "
+                        "matplotlib)")
     d.set_defaults(fn=cmd_demo)
 
     b = sub.add_parser("bench", parents=[common], help="slope-estimated MPPI solves/s")

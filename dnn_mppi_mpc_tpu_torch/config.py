@@ -168,9 +168,11 @@ class SQPConfig:
     ``qp_backend`` is ``"torch"`` (``solvers/qp.barrier_qp_solve``, the
     counterpart of the JAX ``"xla"``) or ``"kernel"`` (the fused
     barrier-Riccati CUDA kernel, the counterpart of ``"pallas"``; on CPU
-    tensors its plain version). The JAX names raise ``ValueError``. The JAX
-    ``parallel_riccati`` (the associative-scan Riccati) is not ported: on the
-    card the kernel takes its role of cutting the QP's sequential depth.
+    tensors its plain version). The JAX names raise ``ValueError``.
+    ``parallel_riccati`` (default True, as in JAX) has the ``"torch"``
+    backend solve each Newton step's LQR by the associative-scan Riccati
+    (``solvers/qp.riccati_solve_parallel``) instead of the serial sweep; the
+    ``"kernel"`` backend does not read it.
     """
 
     N: int  # shooting intervals
@@ -191,6 +193,7 @@ class SQPConfig:
     ip_delta: float = 1.0e-3  # relaxed-barrier threshold δ (the QP's accuracy floor)
     line_search: str = "merit"  # 'merit' (ℓ1 merit over six step sizes) or 'full'
     h_terminal: bool = True  # h-constraints at the terminal node too
+    parallel_riccati: bool = True  # the torch backend's LQR by associative scans
     qp_backend: str = "torch"  # 'torch' or 'kernel'
 
     def __post_init__(self):

@@ -485,9 +485,11 @@ def four_wheel_nmpc(goal, N: int = 20, dt: float = 0.1, sqp_iters: int = 2, devi
     return solver, params
 
 
-def nmpc_fleet(B: int = 128, N: int = 30, qp_backend: str = "kernel", device="cuda"):
+def nmpc_fleet(B: int = 128, N: int = 30, qp_backend: str = "kernel", device="cuda",
+               **overrides):
     """(solver, params, states, x0s) of the JAX suite's ``nmpc_fleet`` row:
-    :func:`diff_drive_nmpc` with its defaults (``sqp_iters=2``) at horizon N;
+    :func:`diff_drive_nmpc` with its defaults (``sqp_iters=2``) at horizon N,
+    other :class:`SQPConfig` fields from ``overrides``;
     member b drives to goal b = (3 cos θ_b, 3 sin θ_b, θ_b) and avoids one
     obstacle of radius 0.25 at 0.55 of the way, with θ, then x0s ∈ ±0.3,
     drawn from ``np.random.default_rng(0)``. Every params leaf carries the
@@ -495,7 +497,7 @@ def nmpc_fleet(B: int = 128, N: int = 30, qp_backend: str = "kernel", device="cu
     with ``solver.batched_solve()``."""
     device = resolve_device(device)
     solver, base = diff_drive_nmpc(np.zeros(3), N=N, obstacles=[[1.0, 0.0, 0.3]],
-                                   qp_backend=qp_backend, device=device)
+                                   qp_backend=qp_backend, device=device, **overrides)
     rng = np.random.default_rng(0)
     ang = rng.uniform(0, 2 * np.pi, B)
     goals = np.stack([3.0 * np.cos(ang), 3.0 * np.sin(ang), ang], axis=1).astype(np.float32)

@@ -15,9 +15,11 @@ route of :class:`~.sqp.NMPCSolver`). The implicit-function-theorem
 backward of the fused kernel (:func:`ift_qp_vjp`, with
 :func:`condensed_barrier_objective` and :func:`barrier_hessian_blocks`)
 lives here too. Every function takes an optional leading batch dimension,
-so one call serves a fleet. The JAX package's
-associative-scan Riccati (``riccati_solve_parallel``) is not ported; on the
-card the fused kernel (``ops/cuda/riccati_qp.py``) takes its role.
+so one call serves a fleet. The LQR of a Newton step is solved either by
+the serial sweep (:func:`riccati_solve`, N dependent stages) or by the
+associative-scan Riccati (:func:`riccati_solve_parallel`, ~2⌈log₂(N+1)⌉
+levels of batched combines): ``barrier_qp_solve(parallel=True)``, which
+``SQPConfig.parallel_riccati`` selects, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -119,6 +121,189 @@ def riccati_solve(data: LQRData, dx0: torch.Tensor) -> Tuple[torch.Tensor, torch
     return torch.stack(dX, dim=-2), torch.stack(dU, dim=-2)
 
 
+def _every_other(elems: tuple, dims: tuple, start: int, stop: int) -> tuple:
+    """Elements start, start + 2, … below stop of each leaf's stage axis."""
+    return tuple(e[(Ellipsis, slice(start, stop, 2)) + (slice(None),) * (-d - 1)]
+                 for e, d in zip(elems, dims))
+
+
+def _prefix_scan(combine, elems: tuple, dims: tuple) -> tuple:
+    """Inclusive scan over the stage axis (``dims`` gives each leaf's, from
+    the end): element i becomes combine(… combine(e₀, e₁) …, eᵢ), with
+    ``combine(earlier, later)``. ``jax.lax.associative_scan``'s scheme:
+    neighbouring pairs combined, the pairs scanned recursively (the odd
+    results), then each even element combined onto the odd result before
+    it: ~2⌈log₂L⌉ batched combines over static slices, no padding."""
+    L = elems[0].shape[dims[0]]
+    if L < 2:
+        return elems
+    pairs = combine(_every_other(elems, dims, 0, L - 1), _every_other(elems, dims, 1, L))
+    odd = _prefix_scan(combine, pairs, dims)
+    n_even = (L - 1) // 2
+    filled = combine(tuple(o.narrow(d, 0, n_even) for o, d in zip(odd, dims)),
+                     _every_other(elems, dims, 2, L))
+    out = []
+    for e, f, o, d in zip(elems, filled, odd, dims):
+        even = torch.cat([e.narrow(d, 0, 1), f], dim=d)
+        woven = torch.stack([even.narrow(d, 0, o.shape[d]), o], dim=d).flatten(d - 1, d)
+        out.append(torch.cat([woven, even.narrow(d, -1, 1)], dim=d) if L % 2 else woven)
+    return tuple(out)
+
+
+def _suffix_scan(combine, elems: tuple, dims: tuple) -> tuple:
+    """Inclusive reverse scan: element i becomes combine(eᵢ, combine(eᵢ₊₁,
+    … e_{L−1})). :func:`_prefix_scan` of the flipped stages, as
+    ``associative_scan(reverse=True)`` runs it."""
+    def flip(es):
+        return tuple(e.flip(d) for e, d in zip(es, dims))
+
+    return flip(_prefix_scan(lambda later, earlier: combine(earlier, later), flip(elems), dims))
+
+
+def _affine_compose(earlier: tuple, later: tuple) -> tuple:
+    """later ∘ earlier of the affine maps x ↦ Mx + v."""
+    (Mf, vf), (Mg, vg) = earlier, later
+    return Mg @ Mf, _mv(Mg, vf) + vg
+
+
+def _value_compose(earlier: tuple, later: tuple) -> tuple:
+    """The conditional cost-to-go of stages i..j from those of i..k and
+    k+1..j (JAX ``solvers/qp.py riccati_solve_parallel``'s ``combine``, with
+    the earlier element first): with D = (I + C₁J₂)⁻¹,
+
+        A₁₂ = A₂DA₁,  b₁₂ = A₂D(b₁ + C₁η₂) + b₂,  C₁₂ = A₂DC₁A₂ᵀ + C₂,
+        η₁₂ = A₁ᵀDᵀ(η₂ − J₂b₁) + η₁,  J₁₂ = A₁ᵀDᵀJ₂A₁ + J₁ (symmetrized).
+
+    One pivoted LU of I + C₁J₂ (not symmetric, so no Cholesky) gives DA₁,
+    D(b₁ + C₁η₂), DC₁ and D itself; Dᵀ is applied as a product."""
+    A1, b1, C1, eta1, J1 = earlier
+    A2, b2, C2, eta2, J2 = later
+    nx = A1.shape[-1]
+    eye = torch.eye(nx, dtype=A1.dtype, device=A1.device)
+    M = eye + C1 @ J2
+    sol = small_lu_solve(M, torch.cat(
+        [A1, (b1 + _mv(C1, eta2)).unsqueeze(-1), C1, eye.expand_as(M)], dim=-1))
+    DA1, Db1 = sol[..., :nx], sol[..., nx]
+    DC1, D = sol[..., nx + 1:2 * nx + 1], sol[..., 2 * nx + 1:]
+    A2t = A2.transpose(-1, -2)
+    A1t = A1.transpose(-1, -2)
+    rhs = D.transpose(-1, -2) @ torch.cat([(eta2 - _mv(J2, b1)).unsqueeze(-1), J2 @ A1], dim=-1)
+    J12 = A1t @ rhs[..., 1:] + J1
+    return (A2 @ DA1, _mv(A2, Db1) + b2, A2 @ DC1 @ A2t + C2, _mv(A1t, rhs[..., 0]) + eta1,
+            0.5 * (J12 + J12.transpose(-1, -2)))
+
+
+def riccati_solve_parallel(data: LQRData, dx0: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The affine LQR of :func:`riccati_solve` (the same minimizer; only the
+    rounding differs) with O(log N)-depth scans over the stages in place of
+    the two N-step sweeps: the counterpart of JAX ``solvers/qp.py``'s
+    ``riccati_solve_parallel``, the JAX NMPC's default route.
+
+    Each stage k carries the conditional cost-to-go between its boundary
+    states, F_k(x, z) = ½xᵀJx − ηᵀx + T(z; Ax + b, C), with C = BR⁻¹Bᵀ the
+    control Gramian; the terminal element is V_N alone (A = 0). A reverse
+    scan of :func:`_value_compose` gives every suffix value function
+    V_k(x) = ½xᵀJ_k x − η_kᵀx; the gains come from V_{k+1} stage-parallel,
+    and the rollout is a prefix scan of the closed-loop affine maps
+    x_{k+1} = (A + BK)x + (Bk + c). A cross term S is first eliminated by
+    ũ = u + R⁻¹Sx (Q̃ = Q − SᵀR⁻¹S, q̃ = q − SᵀR⁻¹r, Ã = A − BR⁻¹S).
+
+    The scans take JAX's odd/even scheme (:func:`_prefix_scan`), ~2⌈log₂L⌉
+    levels of one batched combine each. Hillis-Steele's ⌈log₂L⌉ levels
+    would halve the launches, but they compose long free-ended stage
+    segments with one another: on a stiff (5, 4) LQR at N = 256 that put δU
+    1e-2 off the serial sweep in float64, where this scheme is within 1e-9
+    (tests/test_torch_qp.py::test_riccati_solve_parallel_long_stiff_lqr).
+    Neither scheme holds every such LQR: there the scan can lose ~1e-3.
+    Every solve is ``small_lu_solve`` (pivoted, unrolled: no host sync, no
+    ``torch.linalg``); no in-place op and no data-dependent branch, so
+    autograd and ``torch.func`` go through it. Leaves may carry leading
+    batch dimensions (broadcast against each other and dx0).
+
+    The solve runs in float64 whatever the leaves' dtype, and its results
+    come back in the leaves' dtype. In float32 the construction is not
+    stable under the barrier's stiffness: the combine's I + C₁J₂ carries
+    J's ~1e6 curvatures against a rank-nu Gramian, and on a stiff nmpc_rti
+    QP the float32 scan's δU came out 0.43 from the exact step, in JAX's
+    ``riccati_solve_parallel`` as in this one, where the serial sweep is
+    within 7e-6 (tests/test_torch_nmpc.py::test_scan_route_float32_on_a_stiff_qp).
+    The casts add ten ops a call."""
+    dtype = data.A.dtype
+    work = torch.promote_types(dtype, torch.float64)
+    lead = torch.broadcast_shapes(*(t.shape[:-k] for t, k in (
+        (data.A, 3), (data.B, 3), (data.c, 2), (data.Qxx, 3), (data.qx, 2), (data.Ruu, 3),
+        (data.ru, 2), (dx0, 1))), *(() if data.S is None else (data.S.shape[:-3],)))
+
+    def full(t, k):
+        if t is None:
+            return None
+        t = t.to(work)
+        return t if t.shape[:-k] == lead else t.expand(*lead, *t.shape[-k:])
+
+    dX, dU = _riccati_scan(
+        LQRData(A=full(data.A, 3), B=full(data.B, 3), c=full(data.c, 2), Qxx=full(data.Qxx, 3),
+                qx=full(data.qx, 2), Ruu=full(data.Ruu, 3), ru=full(data.ru, 2),
+                S=full(data.S, 3)), full(dx0, 1))
+    return dX.to(dtype), dU.to(dtype)
+
+
+def _riccati_scan(data: LQRData, dx0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`riccati_solve_parallel` on leaves of one dtype and one batch
+    shape."""
+    nx, nu = data.A.shape[-1], data.B.shape[-1]
+    lead = dx0.shape[:-1]
+    dtype, dev = data.A.dtype, data.A.device
+    reg = 1e-9
+    eye_u = torch.eye(nu, dtype=dtype, device=dev)
+    A, B, c, Qxx, qx, Ruu, ru, S = data
+
+    if S is not None:
+        sol = small_lu_solve(Ruu + reg * eye_u, torch.cat([S, ru.unsqueeze(-1)], dim=-1))
+        RinvS, Rinvr = sol[..., :nx], sol[..., nx]
+        St = S.transpose(-1, -2)
+        reduced = LQRData(
+            A=A - B @ RinvS, B=B, c=c,
+            Qxx=torch.cat([Qxx[..., :-1, :, :] - St @ RinvS, Qxx[..., -1:, :, :]], dim=-3),
+            qx=torch.cat([qx[..., :-1, :] - _mv(St, Rinvr), qx[..., -1:, :]], dim=-2),
+            Ruu=Ruu, ru=ru)
+        dX, dUt = _riccati_scan(reduced, dx0)
+        return dX, dUt - _mv(RinvS, dX[..., :-1, :])
+
+    # stage elements k = 0..N-1: u eliminated around u* = −R⁻¹r
+    Ruu = Ruu + reg * eye_u
+    Bt = B.transpose(-1, -2)
+    sol = small_lu_solve(Ruu, torch.cat([Bt, ru.unsqueeze(-1)], dim=-1))
+    Rinv_Bt, Rinv_r = sol[..., :nx], sol[..., nx]
+    zero_x = torch.zeros((*lead, 1, nx), dtype=dtype, device=dev)
+    zero_xx = torch.zeros((*lead, 1, nx, nx), dtype=dtype, device=dev)
+    # the terminal element: V_N alone, A = 0 pins the dangling boundary state
+    elems = (torch.cat([A, zero_xx], dim=-3),
+             torch.cat([c - _mv(B, Rinv_r), zero_x], dim=-2),
+             torch.cat([B @ Rinv_Bt, zero_xx], dim=-3),
+             -qx,
+             Qxx)
+    _, _, _, v, Jv = _suffix_scan(_value_compose, elems, (-3, -2, -3, -2, -3))
+
+    # gains against V_{k+1}(y) = ½yᵀJ_{k+1}y − v_{k+1}ᵀy, all stages at once
+    BtS = Bt @ Jv[..., 1:, :, :]
+    G = Ruu + BtS @ B
+    G = 0.5 * (G + G.transpose(-1, -2))
+    rhs = ru + _mv(BtS, c) - _mv(Bt, v[..., 1:, :])
+    gains = -small_lu_solve(G, torch.cat([BtS @ A, rhs.unsqueeze(-1)], dim=-1))
+    K, k = gains[..., :nx], gains[..., nx]
+
+    dX = _affine_roll(A + B @ K, _mv(B, k) + c, dx0)
+    return dX, _mv(K, dX[..., :-1, :]) + k
+
+
+def _affine_roll(M: torch.Tensor, v: torch.Tensor, dx0: torch.Tensor) -> torch.Tensor:
+    """δX (..., N+1, nx) of x_{k+1} = M_k x_k + v_k from dx0 (..., nx), by a
+    prefix scan of the affine maps."""
+    Mp, vp = _prefix_scan(_affine_compose, (M, v), (-3, -2))
+    return torch.cat([dx0.unsqueeze(-2), _mv(Mp, dx0.unsqueeze(-2)) + vp], dim=-2)
+
+
 class BoxedQPData(NamedTuple):
     """Stage-structured QP with bounds and linearized inequality constraints
     (fields as in the JAX package). Margins use the convention w ≥ 0
@@ -181,6 +366,7 @@ def barrier_qp_solve(
     stiffness: Optional[float] = None,
     h_stiffness: Optional[float] = None,
     h_slope: float = 0.0,
+    parallel: bool = False,
     return_kkt: bool = False,
 ):
     """Solve the inequality-constrained QP by barrier-Newton/Riccati.
@@ -190,8 +376,12 @@ def barrier_qp_solve(
     and gradients and takes one exact Riccati Newton step, damped by the
     fraction-to-boundary rule; μ decreases geometrically (μ ← κμ). A final
     condensing roll propagates δx through the linear dynamics with the
-    solved δU. ``return_kkt`` also returns the ∞-norm of the last damped
-    Newton step, a convergence certificate.
+    solved δU. ``parallel`` solves each Newton step's LQR with
+    :func:`riccati_solve_parallel` and rolls by a prefix scan, as JAX's
+    ``parallel=True`` does (default False, JAX's default here too: the
+    SQP engine passes ``SQPConfig.parallel_riccati``). ``return_kkt`` also
+    returns the ∞-norm of the last damped Newton step, a convergence
+    certificate.
 
     Unbatched leaves give (δX (N+1, nx), δU (N, nu)[, kkt ()]); with a
     leading batch dimension B on dx0 or on any leaf the results are (B, …)
@@ -251,7 +441,8 @@ def barrier_qp_solve(
         # Newton step: affine LQR on the residual problem
         c_res = _mv(qp.A, dX[:, :-1]) + _mv(qp.B, dU) + qp.c - dX[:, 1:]
         lqr = LQRData(A=qp.A, B=qp.B, c=c_res, Qxx=Qxx, qx=qx, Ruu=Ruu, ru=ru, S=qp.S)
-        ddX, ddU = riccati_solve(lqr, torch.zeros((Bn, nx), dtype=dtype, device=dev))
+        lqr_solve = riccati_solve_parallel if parallel else riccati_solve
+        ddX, ddU = lqr_solve(lqr, torch.zeros((Bn, nx), dtype=dtype, device=dev))
 
         # fraction-to-boundary damping (the HPIPM step rule)
         alpha = torch.minimum(torch.minimum(ftb(wl, ddX), ftb(wu, -ddX)),
@@ -266,7 +457,10 @@ def barrier_qp_solve(
 
     # condensing roll: propagate δx exactly through the linear dynamics with
     # the solved δU, removing the residual that damping leaves
-    dX = _roll(dU, qp, dx0)
+    if parallel:
+        dX = _affine_roll(qp.A, _mv(qp.B, dU) + qp.c, dx0)
+    else:
+        dX = _roll(dU, qp, dx0)
     if step_norm is None:
         step_norm = torch.zeros((Bn,), dtype=dtype, device=dev)
     if not batched:
@@ -448,4 +642,5 @@ __all__ = [
     "ift_qp_vjp",
     "relaxed_barrier",
     "riccati_solve",
+    "riccati_solve_parallel",
 ]

@@ -13,7 +13,8 @@ Everything is batch-aware: a state with a leading member axis B is a fleet,
 solved in one pass of batched tensor ops; the params' leaves may carry the
 same leading B or be shared. The QP goes to ``cfg.qp_backend``: ``"torch"``
 (:func:`~.qp.barrier_qp_solve`, batched tensor ops that autograd can go
-through) or ``"kernel"`` (the fused CUDA kernel: one problem through
+through, its LQR the associative scan unless ``cfg.parallel_riccati`` is
+False) or ``"kernel"`` (the fused CUDA kernel: one problem through
 ``fused_barrier_qp_solve``, a fleet through
 ``batched_fused_barrier_qp_solve``; their plain versions on CPU tensors).
 Both backends differentiate: the kernel's gradient is the
@@ -330,7 +331,7 @@ def sqp_solve(
                 dX, dU, kkt = fused_barrier_qp_solve(one, dx0[0], **kw)
                 dX, dU, kkt = dX[None], dU[None], kkt[None]
             return dX.to(dtype), dU.to(dtype), kkt
-        return barrier_qp_solve(qp, dx0, return_kkt=True, **kw)
+        return barrier_qp_solve(qp, dx0, parallel=cfg.parallel_riccati, return_kkt=True, **kw)
 
     def merit(Xc, Uc):
         """ℓ1 merit of the candidates (k, Bt, …): LS cost + 1e3·(defects,
@@ -443,7 +444,10 @@ class NMPCSolver:
         kw = dict(y_x_fn=y_x_fn, y_fn=y_fn, y_e_fn=y_e_fn)
         self._core = functools.partial(sqp_solve, cfg, step, h_fn, **kw)
         # the torch-backend twin, whose gradient is the exact derivative of
-        # its own forward (solve_fn / batched_solve with differentiable=True)
+        # its own forward (solve_fn / batched_solve with differentiable=True).
+        # It keeps cfg.parallel_riccati, as JAX's all-XLA twin does: by
+        # default autograd runs through the associative-scan Riccati, the
+        # route with the fewer ops to record and replay
         if cfg.qp_backend == "kernel":
             torch_cfg = dataclasses.replace(cfg, qp_backend="torch")
             self._torch_core = functools.partial(sqp_solve, torch_cfg, step, h_fn, **kw)
@@ -475,7 +479,10 @@ class NMPCSolver:
         It is exact for a converged QP solve. ``differentiable=True`` gives
         the torch-QP twin instead, whose gradient is the exact derivative of
         its own forward: the choice when checking against finite
-        differences, at the torch QP's slower forward."""
+        differences, at the torch QP's slower forward. The twin solves its
+        LQRs as ``cfg.parallel_riccati`` says (the associative scan by
+        default, as JAX's all-XLA twin does), while the kernel backend's
+        ``backward="recompute"`` replays the serial sweep, as JAX's does."""
         return self._torch_core if differentiable else self._core
 
     def batched_solve(self, differentiable: bool = False):

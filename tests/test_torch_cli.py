@@ -4,7 +4,7 @@ cpu``, the last stdout line parsed as JSON. ``info``; each of the six demos
 runs and stays finite at small sizes; ``diff-drive-mppi --lookahead``; the
 goal-seeking demo within 1 m of its goal (tests/test_cli.py:78-84); collect
 → train with a checkpoint; the bench; and what raises: ``--fused`` and
-``--device cuda`` without a card, ``demo --out``.
+``--device cuda`` without a card, ``demo --out`` without matplotlib.
 """
 
 from __future__ import annotations
@@ -124,11 +124,17 @@ def test_cli_fused_without_a_card_raises():
         cli_main(["demo", "diff-drive-mppi", "--ticks", "2", "--fused", "--device", "cpu"])
 
 
-def test_cli_out_raises(tmp_path):
-    with pytest.raises(RuntimeError, match="plotting"):
+def test_cli_out_raises(tmp_path, monkeypatch):
+    """On a host without matplotlib (the card's) ``demo --out`` raises
+    before the demo runs: nothing written, no line printed, no fallback
+    (tests/test_torch_plotting.py writes the plots where it is present)."""
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    monkeypatch.delitem(sys.modules, "dnn_mppi_mpc_tpu_torch.utils.plotting", raising=False)
+    buf = io.StringIO()
+    with pytest.raises(ImportError, match="matplotlib"), contextlib.redirect_stdout(buf):
         cli_main(["demo", "diff-drive-mppi", "--ticks", "2", "--device", "cpu",
                   "--out", str(tmp_path)])
-    assert not any(tmp_path.iterdir())
+    assert not any(tmp_path.iterdir()) and buf.getvalue() == ""
 
 
 def test_cli_realtime_hands_its_flags_on(monkeypatch):

@@ -26,7 +26,14 @@
 * the autotune smoke (``examples/nmpc_autotune.py``'s loop at
   tests/test_diff_nmpc.py:161-184's scale): 12 ``torch.optim.Adam`` steps on
   the kernel backend cut the loss below 0.6 of the first, and the torch
-  twin's first five losses follow JAX's optax loop (rtol 1e-4).
+  twin's first five losses follow JAX's optax loop (rtol 1e-4; the serial
+  Riccati on both sides);
+* the torch twin on JAX's default route (``parallel_riccati=True``, autograd
+  through the associative scan): the 6-tick loss's θ = log diag(Q, R)
+  gradient through ``solve_fn(differentiable=True)`` and a B = 3 fleet's
+  x0s gradient through ``batched_solve(differentiable=True)`` against
+  ``jax.grad`` through JAX's default ``"xla"`` route (rtol 2e-3, atol 1e-4,
+  as the kernel backend's).
 
 Every comparison prints its largest error.
 """
@@ -323,9 +330,9 @@ def test_wrapper_shared_leaf_gradient_is_the_members_sum():
 # --- the NMPC tick on the kernel backend ------------------------------------------
 
 
-def _solver(backend="kernel", N=8, sqp_iters=1):
+def _solver(backend="kernel", N=8, sqp_iters=1, parallel=True):
     cfg = SQPConfig(N=N, dim_x=3, dim_u=2, dt=0.1, sqp_iters=sqp_iters, qp_iters=6,
-                    qp_backend=backend)
+                    qp_backend=backend, parallel_riccati=parallel)
     return NMPCSolver(cfg, unicycle, device="cpu"), cfg
 
 
@@ -402,22 +409,18 @@ def _jax_params(theta, N):
         lbu=jnp.full(2, -5.0, jnp.float32), ubu=jnp.full(2, 5.0, jnp.float32))
 
 
-def _jax_solver(N, sqp_iters=1):
+def _jax_solver(N, sqp_iters=1, parallel=False):
     cfg = JSQPConfig(N=N, dim_x=3, dim_u=2, dt=0.1, sqp_iters=sqp_iters, qp_iters=6,
-                     qp_backend="xla", parallel_riccati=False)
+                     qp_backend="xla", parallel_riccati=parallel)
     return jsqp.NMPCSolver(cfg, j_unicycle), cfg
 
 
-def test_tick_gradients_match_jax_xla(f32_mode):
-    """tests/test_diff_nmpc.py:107-158 with the port's kernel backend
-    (plain forward, IFT backward) in place of JAX's pallas one: the 6-tick
-    tracking loss's θ gradient, and a B = 3 fleet's Σ u0² gradient in x0s
-    through ``batched_solve()``, against JAX's all-XLA ``jax.grad`` (each
-    member's row from its own tick)."""
-    N, ticks = 6, 6
-    js, jcfg = _jax_solver(N)
-    x0 = np.array(X0, np.float32)
-    x0s = np.stack([x0, x0 + 0.1, x0 - 0.2]).astype(np.float32)
+def _jax_tick_gradients(N, ticks, x0, x0s, parallel):
+    """JAX's all-XLA ``jax.grad`` on the Riccati route ``parallel``: the
+    6-tick tracking loss and its θ gradient, and each member's Σ u0²
+    gradient in its x0 (row b of a fleet's gradient is member b's: the
+    members are independent)."""
+    js, jcfg = _jax_solver(N, parallel=parallel)
 
     def jax_loss(th):
         op = _jax_params(th, N)
@@ -438,23 +441,72 @@ def test_tick_gradients_match_jax_xla(f32_mode):
         return jnp.sum(u0**2)
 
     j_loss, j_g = jax.jit(jax.value_and_grad(jax_loss))(jnp.asarray(THETA))
-    # the members are independent: row b of the fleet's gradient is member b's
     member_grad = jax.jit(jax.grad(jax_member))
     j_gf = np.stack([np.asarray(member_grad(jnp.asarray(x))) for x in x0s])
+    return float(j_loss), np.asarray(j_g), j_gf
+
+
+def test_tick_gradients_match_jax_xla(f32_mode):
+    """tests/test_diff_nmpc.py:107-158 with the port's kernel backend
+    (plain forward, IFT backward) in place of JAX's pallas one: the 6-tick
+    tracking loss's θ gradient, and a B = 3 fleet's Σ u0² gradient in x0s
+    through ``batched_solve()``, against JAX's all-XLA ``jax.grad`` (each
+    member's row from its own tick)."""
+    N, ticks = 6, 6
+    x0 = np.array(X0, np.float32)
+    x0s = np.stack([x0, x0 + 0.1, x0 - 0.2]).astype(np.float32)
+    j_loss, j_g, j_gf = _jax_tick_gradients(N, ticks, x0, x0s, parallel=False)
 
     ts, tcfg = _solver(N=N)
     theta = torch.tensor(THETA, requires_grad=True)
     loss = _closed_loop_loss(ts, tcfg, theta, torch.tensor(x0), ticks=ticks, effort=0.0)
     (g,) = torch.autograd.grad(loss, theta)
-    _close("6-tick loss vs JAX xla", loss.item(), float(j_loss), 1e-4, 0.0)
-    _close("θ gradient vs JAX xla", g.numpy(), np.asarray(j_g), 2e-3, 1e-4)
+    _close("6-tick loss vs JAX xla", loss.item(), j_loss, 1e-4, 0.0)
+    _close("θ gradient vs JAX xla", g.numpy(), j_g, 2e-3, 1e-4)
 
     xs = torch.tensor(x0s, requires_grad=True)
     kern.reset_counts()
     u0, _, _ = ts.batched_solve()(_params(torch.tensor(THETA), N), ts.init(xs), xs)
     (gf,) = torch.autograd.grad((u0**2).sum(), xs)
     assert kern.batched_fused_barrier_qp_solve_plain.calls == 1
-    _close("fleet x0s gradient vs JAX xla", gf.numpy(), np.asarray(j_gf), 2e-3, 1e-4)
+    _close("fleet x0s gradient vs JAX xla", gf.numpy(), j_gf, 2e-3, 1e-4)
+
+
+def test_twin_gradients_on_the_scan_route_match_jax_default(f32_mode, monkeypatch):
+    """JAX's default NMPC route on both sides (``parallel_riccati=True``):
+    the port's torch twin, autograd through the associative-scan Riccati,
+    against ``jax.grad`` through JAX's ``"xla"`` backend, which runs its
+    scan; the limits of test_tick_gradients_match_jax_xla."""
+    N, ticks = 6, 6
+    x0 = np.array(X0, np.float32)
+    x0s = np.stack([x0, x0 + 0.1, x0 - 0.2]).astype(np.float32)
+    j_loss, j_g, j_gf = _jax_tick_gradients(N, ticks, x0, x0s, parallel=True)
+
+    calls = []
+    real = tqp.riccati_solve_parallel
+
+    def spy(*a):
+        calls.append(1)
+        return real(*a)
+
+    monkeypatch.setattr(tqp, "riccati_solve_parallel", spy)
+    ts, tcfg = _solver(N=N)
+    assert tcfg.parallel_riccati
+    theta = torch.tensor(THETA, requires_grad=True)
+    loss = _closed_loop_loss(ts, tcfg, theta, torch.tensor(x0), ticks=ticks, effort=0.0,
+                             tick=ts.solve_fn(differentiable=True))
+    (g,) = torch.autograd.grad(loss, theta)
+    assert len(calls) == ticks * tcfg.qp_iters
+    _close("twin 6-tick loss vs JAX default route", loss.item(), j_loss, 1e-4, 0.0)
+    _close("twin θ gradient vs JAX default route", g.numpy(), j_g, 2e-3, 1e-4)
+
+    xs = torch.tensor(x0s, requires_grad=True)
+    kern.reset_counts()
+    u0, _, _ = ts.batched_solve(differentiable=True)(_params(torch.tensor(THETA), N),
+                                                     ts.init(xs), xs)
+    (gf,) = torch.autograd.grad((u0**2).sum(), xs)
+    assert kern.batched_fused_barrier_qp_solve_plain.calls == 0
+    _close("twin fleet x0s gradient vs JAX default route", gf.numpy(), j_gf, 2e-3, 1e-4)
 
 
 @pytest.fixture
@@ -494,11 +546,11 @@ def test_sharded_nmpc_fleet_gradient_equals_batched_solve(gloo_world1):
 THETA_POOR = np.log([0.5, 0.5, 5.0, 3.0, 3.0]).astype(np.float32)
 
 
-def _port_autotune(tick_of, steps, lr=0.2):
+def _port_autotune(tick_of, steps, lr=0.2, parallel=True):
     """examples/nmpc_autotune.py's loop at tests/test_diff_nmpc.py:161-184's
     scale with ``torch.optim.Adam`` (optax.adam's betas and eps): the loss
     at each step, before its update."""
-    solver, cfg = _solver()
+    solver, cfg = _solver(parallel=parallel)
     theta = torch.tensor(THETA_POOR, requires_grad=True)
     opt = torch.optim.Adam([theta], lr=lr, betas=(0.9, 0.999), eps=1e-8)
     losses = []
@@ -552,5 +604,5 @@ def test_autotune_torch_twin_follows_jax_optax(f32_mode):
     for _ in range(5):
         v, th, os_ = step(th, os_)
         want.append(float(v))
-    got = _port_autotune(lambda s: s.solve_fn(differentiable=True), 5)
+    got = _port_autotune(lambda s: s.solve_fn(differentiable=True), 5, parallel=False)
     _close("torch twin's first five autotune losses vs JAX optax", got, want, 1e-4, 0.0)

@@ -326,6 +326,16 @@ def _sharded_nmpc(device):
         dist.destroy_process_group()
 
 
+def _scan_route_tick(device):
+    """One tick of the torch QP backend on the associative-scan Riccati
+    (JAX's default route) where the solver was built."""
+    solver, params = presets.diff_drive_nmpc([1.0, 0.0, 0.0], N=5, qp_iters=2,
+                                             qp_backend="torch", parallel_riccati=True,
+                                             **device)
+    x0 = torch.zeros(3, device=solver.device)
+    return solver.solve(params, solver.init(x0), x0)
+
+
 def _cem():
     from dnn_mppi_mpc_tpu_torch.solvers import cem
 
@@ -433,6 +443,7 @@ DEVICE_DEFAULTS = {
     "presets.four_wheel_nmpc": lambda device: presets.four_wheel_nmpc(
         [1.0, 0.5, 0.0, 0.0, 0.0], N=5, **device),
     "presets.nmpc_fleet": lambda device: presets.nmpc_fleet(B=2, N=5, **device),
+    "NMPCSolver torch backend, parallel_riccati": _scan_route_tick,
     "make_sharded_nmpc_fleet": _sharded_nmpc,
     "ocp_params_from_numpy": lambda device: tsqp.ocp_params_from_numpy(
         np.eye(3), np.eye(2), np.eye(3), np.zeros((5, 5)), np.zeros(3), -np.ones(3),
@@ -544,7 +555,8 @@ def test_port_never_imports_jax():
         "import dnn_mppi_mpc_tpu_torch.solvers.cem, dnn_mppi_mpc_tpu_torch.envs.bullet_bridge\n"
         "import dnn_mppi_mpc_tpu_torch.testing.oracle, dnn_mppi_mpc_tpu_torch.testing.mock_pybullet\n"
         "import dnn_mppi_mpc_tpu_torch.utils.profiling, dnn_mppi_mpc_tpu_torch.paths.splines\n"
-        "import dnn_mppi_mpc_tpu_torch.ops.cuda.user_tile\n"
+        "import dnn_mppi_mpc_tpu_torch.ops.cuda.user_tile, dnn_mppi_mpc_tpu_torch.cli\n"
+        "import dnn_mppi_mpc_tpu_torch.utils.plotting\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'dnn_mppi_mpc_tpu'))\n"

@@ -6,7 +6,10 @@
   (rtol/atol 1e-5);
 * one tick of ``presets.diff_drive_nmpc(N=30, two obstacles, sqp_iters=1,
   device="cpu")`` from the same warm start as the JAX solver: the torch QP
-  backend against JAX ``qp_backend="xla", parallel_riccati=False``, the
+  backend's serial sweep against JAX ``qp_backend="xla",
+  parallel_riccati=False`` (every test against JAX's serial route sets
+  ``parallel_riccati=False`` on both sides) and its associative scan
+  against JAX's default route (both ``parallel_riccati=True``), the
   kernel backend (its plain version on the CPU) against JAX
   ``qp_backend="pallas"`` (interpret mode); u0, X and U within rtol/atol
   1e-3 (the JAX tests allow 2e-3 between their own two backends);
@@ -22,6 +25,11 @@
 * ``batched_solve`` on both backends against per-member ``solve`` (rtol
   1e-4, atol 1e-5 as tests/test_nmpc.py:239), and against the JAX
   ``batched_solve`` at B = 4, N = 12 (1e-3);
+* JAX's default route (``parallel_riccati=True``, the associative scan) on
+  both sides: nmpc_rti for 10 ticks locked to JAX's warm start (1e-3) and
+  free running (0.05), and a B = 4 fleet for 3 ticks through ``solve``,
+  ``batched_solve`` and the sharded fleet at world size 1 (1e-3 against
+  JAX; members 1e-4/1e-5; the sharded fleet bit-equal);
 * the vendored oracle (``testing/oracle_nmpc.py``) equal to the JAX
   package's copy on config 9 for 10 ticks; ``ocp_params_from_numpy`` and
   ``state_from_numpy`` round-trip the JAX leaves; the device guards.
@@ -38,6 +46,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from dnn_mppi_mpc_tpu import presets as jpresets
 from dnn_mppi_mpc_tpu.config import SQPConfig as JSQPConfig
@@ -45,7 +54,7 @@ from dnn_mppi_mpc_tpu.models import dynamics as jdyn
 from dnn_mppi_mpc_tpu.models import integrators as jint
 from dnn_mppi_mpc_tpu.solvers import sqp as jsqp
 from dnn_mppi_mpc_tpu.testing import oracle_nmpc as j_oracle
-from dnn_mppi_mpc_tpu_torch import presets
+from dnn_mppi_mpc_tpu_torch import parallel, presets
 from dnn_mppi_mpc_tpu_torch.config import SQPConfig
 from dnn_mppi_mpc_tpu_torch.models import dynamics as tdyn
 from dnn_mppi_mpc_tpu_torch.models import integrators as tint
@@ -77,6 +86,10 @@ def _close(name, got, want, rtol, atol):
 
 def _jax_cfg(backend: str) -> dict:
     return dict(qp_backend=backend, parallel_riccati=False)
+
+
+# the port's side of a comparison with JAX's serial route
+SERIAL = dict(parallel_riccati=False)
 
 
 def _port_params(jparams) -> tsqp.OCPParams:
@@ -172,11 +185,13 @@ def test_linearize_matches_jax(integrator):
 # --- the nmpc_rti tick ---------------------------------------------------------------
 
 
-def _rti(jax_backend: str, port_backend: str, N: int = 30):
+def _rti(jax_backend: str, port_backend: str, N: int = 30, parallel: bool = False):
     js, jp = jpresets.diff_drive_nmpc(jnp.asarray(GOAL), N=N, obstacles=jnp.asarray(OBSTACLES),
-                                      sqp_iters=1, **_jax_cfg(jax_backend))
+                                      sqp_iters=1, qp_backend=jax_backend,
+                                      parallel_riccati=parallel)
     ts, tp = presets.diff_drive_nmpc(GOAL, N=N, obstacles=OBSTACLES, sqp_iters=1,
-                                     qp_backend=port_backend, device="cpu")
+                                     qp_backend=port_backend, parallel_riccati=parallel,
+                                     device="cpu")
     return js, jp, ts, tp
 
 
@@ -205,7 +220,7 @@ def test_closed_loop_torch_backend_matches_jax():
     goal = [4.0, 0.0, 0.0]
     js, jp = jpresets.diff_drive_nmpc(jnp.asarray(goal), N=20, obstacles=jnp.asarray(obs),
                                       parallel_riccati=False)
-    ts, tp = presets.diff_drive_nmpc(goal, N=20, obstacles=obs, device="cpu")
+    ts, tp = presets.diff_drive_nmpc(goal, N=20, obstacles=obs, device="cpu", **SERIAL)
     x = jnp.zeros(3, jnp.float32)
     st = js.init(x)
     xt = torch.zeros(3)
@@ -249,6 +264,146 @@ def test_closed_loop_kernel_backend():
     assert float(torch.linalg.norm(finals["kernel"][:2])) > 0.5  # it moved toward the goal
 
 
+# --- JAX's default route: the associative-scan Riccati on both sides ------------------
+
+
+def test_rti_tick_scan_route_matches_jax():
+    js, jp, ts, tp = _rti("xla", "torch", parallel=True)
+    assert js.cfg.parallel_riccati and ts.cfg.parallel_riccati
+    taux, jaux = _one_tick(js, jp, ts, tp, [0.2, 0.1, 0.3], "rti scan route")
+    _close("rti scan route h_margin", float(taux.h_margin), float(jaux.h_margin), 1e-3, 1e-3)
+    _close("rti scan route defect", float(taux.defect), float(jaux.defect), 1e-3, 1e-4)
+    _close("rti scan route kkt", float(taux.kkt_residual), float(jaux.kkt_residual), 5e-2, 1e-4)
+
+
+def test_rti_closed_loop_scan_route_matches_jax():
+    """nmpc_rti (N = 30, two obstacles, one SQP iteration) for 10 ticks from
+    x0 = 0 on JAX's default route and the port's: locked to JAX's warm start
+    and state, u0 and U within 1e-3 every tick; free running, the final
+    state within 0.05 (test_closed_loop_torch_backend_matches_jax's
+    limits)."""
+    js, jp, ts, tp = _rti("xla", "torch", parallel=True)
+    x = jnp.zeros(3, jnp.float32)
+    st = js.init(x)
+    xt = torch.zeros(3)
+    stt = ts.init(xt)
+    worst = 0.0
+    for _ in range(10):
+        lock = tsqp.state_from_numpy(np.asarray(st.X), np.asarray(st.U), device="cpu")
+        u_lock, _, aux_lock = ts.solve(tp, lock, torch.tensor(np.asarray(x)))
+        u0, st, _ = js.solve(jp, st, x)
+        worst = max(worst, float(np.abs(u_lock.numpy() - np.asarray(u0)).max()),
+                    float(np.abs(aux_lock.U.numpy() - np.asarray(st.U)).max()))
+        x = js.dyn_step(x, u0)
+        u0t, stt, aux = ts.solve(tp, stt, xt)
+        xt = ts.dyn_step(xt, u0t)
+        assert int(aux.status) == 0
+    print(f"scan route locked-step u0/U max abs err {worst:.3e} (limit 1e-3)")
+    assert worst < 1e-3
+    _close("scan route closed loop final state", xt.numpy(), np.asarray(x), 0.05, 0.05)
+
+
+def test_scan_route_float32_on_a_stiff_qp():
+    """The QP the port's nmpc_rti tick builds at JAX's tick-9 state (scan
+    route on both sides, as in test_rti_closed_loop_scan_route_matches_jax):
+    its h rows' barrier is stiff, and the float32 associative scan of the
+    JAX package lands 0.43 from the exact δU there (the port's scan runs in
+    float64 for that reason) while the serial sweep is within 1e-5. The
+    port's scan route in float32 is held to 1e-4 of a float64 serial solve."""
+    from dnn_mppi_mpc_tpu.solvers import qp as jqp
+    from dnn_mppi_mpc_tpu_torch.solvers import qp as tqp
+
+    js, jp, ts, tp = _rti("xla", "torch", parallel=True)
+    x = jnp.zeros(3, jnp.float32)
+    st = js.init(x)
+    for _ in range(9):
+        u0, st, _ = js.solve(jp, st, x)
+        x = js.dyn_step(x, u0)
+    seen = []
+    real = tsqp.barrier_qp_solve
+
+    def spy(qp, dx0, **kw):
+        seen.append((qp, dx0, kw))
+        return real(qp, dx0, **kw)
+
+    tsqp.barrier_qp_solve = spy
+    try:
+        ts.solve(tp, tsqp.state_from_numpy(np.asarray(st.X), np.asarray(st.U), device="cpu"),
+                 torch.tensor(np.asarray(x)))
+    finally:
+        tsqp.barrier_qp_solve = real
+    (qp, dx0, kw), = seen
+    kw = {k: v for k, v in kw.items() if k not in ("parallel", "return_kkt")}
+    one = tqp.BoxedQPData(*(None if t is None else t[0] for t in qp))
+    exact = tqp.barrier_qp_solve(tqp.BoxedQPData(*(None if t is None else t.double()
+                                                   for t in one)), dx0[0].double(), **kw)[1]
+    scan = tqp.barrier_qp_solve(one, dx0[0], parallel=True, **kw)[1]
+    serial = tqp.barrier_qp_solve(one, dx0[0], **kw)[1]
+    jax_scan = jqp.barrier_qp_solve(
+        jqp.BoxedQPData(*(None if t is None else jnp.asarray(t.numpy()) for t in one)),
+        jnp.asarray(dx0[0].numpy()), parallel=True, **kw)[1]
+    errs = {name: float(np.abs(np.asarray(u, np.float64) - exact.numpy()).max())
+            for name, u in (("port scan", scan), ("port serial", serial),
+                            ("JAX scan", jax_scan))}
+    print("float32 δU against a float64 serial solve:", errs)
+    assert errs["port scan"] < 1e-4 and errs["port serial"] < 1e-4
+
+
+@pytest.fixture
+def gloo_world1():
+    """A single-process gloo group for the test, torn down after it."""
+    assert not dist.is_initialized()
+    assert parallel.initialize_distributed(device="cpu") == (0, 1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def test_fleet_scan_route_matches_jax(gloo_world1):
+    """A B = 4 fleet (N = 12, every leaf per member) for 3 ticks on JAX's
+    default route and the port's, each tick from JAX's states: the port's
+    ``batched_solve`` against JAX's ``batched_solve`` (1e-3), against each
+    member's own ``solve`` (rtol 1e-4, atol 1e-5) and against the sharded
+    fleet at world size 1 (bit-equal)."""
+    B, N = 4, 12
+    goals, x0s, obs, yref = _fleet_inputs(B, N)
+    js, jbase = jpresets.diff_drive_nmpc(jnp.zeros(3), N=N,
+                                         obstacles=jnp.asarray([[1.0, 0.0, 0.3]]))
+    assert js.cfg.parallel_riccati and js.cfg.qp_backend == "xla"
+    jsolver = jsqp.NMPCSolver(js.cfg, jdyn.unicycle, h_fn=jsqp.circle_obstacle_h)
+    jparams = jax.vmap(lambda g, yr, ob: dataclasses.replace(jbase, yref=yr, yref_e=g, p=ob))(
+        jnp.asarray(goals), jnp.asarray(yref), jnp.asarray(obs))
+    jfleet = jsolver.batched_solve()
+    ts, _ = presets.diff_drive_nmpc(np.zeros(3), N=N, obstacles=[[1.0, 0.0, 0.3]], device="cpu")
+    assert ts.cfg.parallel_riccati and ts.cfg.qp_backend == "torch"
+    tparams = _port_params(jparams)
+    tfleet, sharded = ts.batched_solve(), parallel.make_sharded_nmpc_fleet(ts, device="cpu")
+    x = jnp.asarray(x0s)
+    st = jax.vmap(lambda x0: jsqp.NMPCState.init(js.cfg, x0))(x)
+    for tick in range(3):
+        tst = tsqp.state_from_numpy(np.asarray(st.X), np.asarray(st.U), device="cpu")
+        xt = torch.tensor(np.asarray(x))
+        tu0, tst_new, taux = tfleet(tparams, tst, xt)
+        su0, sst, _ = sharded(tparams, tst, xt)
+        torch.testing.assert_close(su0, tu0, rtol=0, atol=0)
+        torch.testing.assert_close(sst.X, tst_new.X, rtol=0, atol=0)
+        u0, st, jaux = jfleet(jparams, st, x)
+        _close(f"scan-route fleet tick {tick} u0 vs JAX", tu0.numpy(), np.asarray(u0), 1e-3, 1e-3)
+        _close(f"scan-route fleet tick {tick} X vs JAX", tst_new.X.numpy(), np.asarray(st.X),
+               1e-3, 1e-3)
+        assert taux.status.tolist() == np.asarray(jaux.status).tolist() == [0] * B
+        for b in range(B):
+            pb = tsqp.OCPParams(**{f.name: getattr(tparams, f.name)[b]
+                                   for f in dataclasses.fields(tparams)})
+            mu0, mst, _ = ts.solve(pb, tsqp.NMPCState(X=tst.X[b], U=tst.U[b]), xt[b])
+            _close(f"scan-route tick {tick} member {b} u0", tu0[b].numpy(), mu0.numpy(),
+                   1e-4, 1e-5)
+            _close(f"scan-route tick {tick} member {b} X", tst_new.X[b].numpy(), mst.X.numpy(),
+                   1e-4, 1e-5)
+        x = jax.vmap(js.dyn_step)(x, u0)
+
+
 # --- the other presets and cost forms ------------------------------------------------
 
 
@@ -257,7 +412,8 @@ def test_racecar_nmpc_tick_matches_jax(dynamic_model):
     goal = [2.0, 1.0, 0.0, 0.0]
     js, jp = jpresets.racecar_nmpc(jnp.asarray(goal), N=10, dynamic_model=dynamic_model,
                                    **_jax_cfg("xla"))
-    ts, tp = presets.racecar_nmpc(goal, N=10, dynamic_model=dynamic_model, device="cpu")
+    ts, tp = presets.racecar_nmpc(goal, N=10, dynamic_model=dynamic_model, device="cpu",
+                                  **SERIAL)
     x0 = [0.1, -0.1, 0.2, 0.5]
     _one_tick(js, jp, ts, tp, x0, f"racecar dynamic={dynamic_model}")
 
@@ -265,7 +421,7 @@ def test_racecar_nmpc_tick_matches_jax(dynamic_model):
 def test_four_wheel_nmpc_irk_tick_matches_jax():
     goal = [1.0, 0.5, 0.0, 0.0, 0.0]
     js, jp = jpresets.four_wheel_nmpc(jnp.asarray(goal), N=10, **_jax_cfg("xla"))
-    ts, tp = presets.four_wheel_nmpc(goal, N=10, device="cpu")
+    ts, tp = presets.four_wheel_nmpc(goal, N=10, device="cpu", **SERIAL)
     assert ts.cfg.integrator == "irk"
     _one_tick(js, jp, ts, tp, [0.05, -0.05, 0.1, 0.2, 0.1], "four-wheel irk")
 
@@ -286,7 +442,7 @@ def test_dnn_nmpc_tick_matches_jax(jax_backend, port_backend, one_torch_thread):
     js, jp = jpresets.dnn_nmpc(jnp.asarray(goal), lambda f: 0.05 * jnet(f), N=10,
                                obstacles=jnp.asarray(obs), **_jax_cfg(jax_backend))
     ts, tp = presets.dnn_nmpc(goal, lambda f: 0.05 * tnet(f), N=10, obstacles=obs,
-                              qp_backend=port_backend, device="cpu")
+                              qp_backend=port_backend, device="cpu", **SERIAL)
     kern.reset_counts()
     _one_tick(js, jp, ts, tp, [0.1, -0.1, 0.2], f"dnn_nmpc {port_backend}")
     assert kern.fused_barrier_qp_solve_plain.calls == (2 if port_backend == "kernel" else 0)
@@ -371,7 +527,7 @@ def test_nonlinear_ls_tick_matches_jax(form):
         kw_j, kw_t = dict(y_x_fn=y_x_j), dict(y_x_fn=y_x_t)
     jcfg = JSQPConfig(N=N, dim_x=3, dim_u=2, dt=0.1, sqp_iters=1, qp_iters=10,
                       parallel_riccati=False)
-    tcfg = SQPConfig(N=N, dim_x=3, dim_u=2, dt=0.1, sqp_iters=1, qp_iters=10)
+    tcfg = SQPConfig(N=N, dim_x=3, dim_u=2, dt=0.1, sqp_iters=1, qp_iters=10, **SERIAL)
     js = jsqp.NMPCSolver(jcfg, jdyn.unicycle, **kw_j)
     ts = tsqp.NMPCSolver(tcfg, tdyn.unicycle, device="cpu", **kw_t)
     jp = jsqp.OCPParams(**{k: jnp.asarray(v, jnp.float32) for k, v in p.items()})
@@ -386,7 +542,7 @@ def test_soft_h_tick_matches_jax():
     js, jp = jpresets.diff_drive_nmpc(jnp.asarray(GOAL), N=10, obstacles=jnp.asarray(obs),
                                       sqp_iters=1, soft_h=True, **_jax_cfg("xla"))
     ts, tp = presets.diff_drive_nmpc(GOAL, N=10, obstacles=obs, sqp_iters=1, soft_h=True,
-                                     device="cpu")
+                                     device="cpu", **SERIAL)
     _one_tick(js, jp, ts, tp, [0.3, 0.2, 0.5], "soft_h", seed=3)
 
 
@@ -446,7 +602,8 @@ def test_batched_solve_matches_jax():
     jstates = jax.vmap(lambda x: jsqp.NMPCState.init(js.cfg, x))(jnp.asarray(x0s))
     ju0, jst, jaux = solver.batched_solve()(jparams, jstates, jnp.asarray(x0s))
 
-    ts, _ = presets.diff_drive_nmpc(np.zeros(3), N=N, obstacles=[[1.0, 0.0, 0.3]], device="cpu")
+    ts, _ = presets.diff_drive_nmpc(np.zeros(3), N=N, obstacles=[[1.0, 0.0, 0.3]], device="cpu",
+                                    **SERIAL)
     tparams = _port_params(jparams)
     assert tparams.Q.shape == (B, 3, 3)
     tu0, tst, taux = ts.batched_solve()(tparams, ts.init(torch.tensor(x0s)), torch.tensor(x0s))

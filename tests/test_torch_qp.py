@@ -21,15 +21,31 @@
   by member against the port's per-problem plain version (2e-5, as
   tests/test_riccati_qp.py:199-207 holds the two JAX kernels), with shared
   leaves broadcast, and at B = 130, N = 4;
+* ``riccati_solve_parallel`` (the associative-scan Riccati) against JAX
+  ``riccati_solve_parallel`` and the port's serial ``riccati_solve`` for
+  N ∈ {1, 2, 7, 31, 60} (N + 1 a power of two and not), nx 2-5, nu 1-3,
+  with and without S: float64 at tests/test_qp.py's rtol 1e-8, atol 1e-9,
+  float32 at 1e-5; a B = 3 batch (a shared leaf among them) member by
+  member against the unbatched calls (float64, rtol 1e-12, atol 1e-14: the
+  same ops on a wider tensor); its gradients by ``gradcheck`` and a
+  ``torch.func.jacrev`` through it; the Newton-step LQRs of a float32
+  barrier solve at N = 256 ((5, 4), two h rows, S), where the scan is held
+  to the serial sweep in float64 (1e-7 on seed 0; 5e-3 on seed 2, where
+  the construction loses 1.3e-3); ``barrier_qp_solve(parallel=True)``
+  against JAX ``parallel=True`` on the ``QP_CASES`` at their tolerances;
 * the guards: an input that requires grad takes gradients (an unknown
   backward rule raises), an uninstantiated (nx, nu) on the card, the JAX
-  backend names in ``SQPConfig``.
+  backend names in ``SQPConfig`` and its ``parallel_riccati`` (JAX's
+  default, read by the torch backend).
 
 Every comparison prints its largest error.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -162,6 +178,132 @@ def test_riccati_solve_matches_jax(with_S):
     tX, tU = tqp.riccati_solve(td, torch.tensor(dx0))
     _close("riccati dX", tX.numpy(), np.asarray(jX), 1e-5, 1e-5)
     _close("riccati dU", tU.numpy(), np.asarray(jU), 1e-5, 1e-5)
+
+
+# --- the associative-scan Riccati ----------------------------------------------
+
+
+def _lqr_np(rng, N, nx, nu, with_S, dtype):
+    """A random LQR of ``_random_qp_np``'s distribution: (leaves, dx0)."""
+    A, B, c, Q, qx, R, ru, *_ = _random_qp_np(rng, N=N, nx=nx, nu=nu)
+    S = (0.1 * rng.normal(size=(N, nu, nx))).astype(np.float32) if with_S else None
+    dx0 = (0.2 * rng.normal(size=(nx,))).astype(np.float32)
+    return [None if a is None else a.astype(dtype) for a in (A, B, c, Q, qx, R, ru, S)], \
+        dx0.astype(dtype)
+
+
+RICCATI_TOL = {"float64": (1e-8, 1e-9), "float32": (1e-5, 1e-5)}
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("with_S", [False, True], ids=["noS", "S"])
+@pytest.mark.parametrize("N", [1, 2, 7, 31, 60])
+def test_riccati_solve_parallel_matches_jax(N, with_S, dtype):
+    """The scan against JAX's scan and against the port's serial sweep, on
+    (nx, nu) drawn from the seed as tests/test_qp.py:276-301 draws them."""
+    rng = np.random.default_rng(100 + N)
+    nx, nu = int(rng.integers(2, 6)), int(rng.integers(1, 4))
+    leaves, dx0 = _lqr_np(rng, N, nx, nu, with_S, np.dtype(dtype))
+    jd = jqp.LQRData(*(None if a is None else jnp.asarray(a) for a in leaves))
+    td = tqp.LQRData(*(None if a is None else torch.tensor(a) for a in leaves))
+    jX, jU = jax.jit(jqp.riccati_solve_parallel)(jd, jnp.asarray(dx0))
+    assert jX.dtype == jnp.dtype(dtype)
+    tX, tU = tqp.riccati_solve_parallel(td, torch.tensor(dx0))
+    sX, sU = tqp.riccati_solve(td, torch.tensor(dx0))
+    assert tX.shape == (N + 1, nx) and tU.shape == (N, nu) and tX.dtype == td.A.dtype
+    rtol, atol = RICCATI_TOL[dtype]
+    tag = f"N={N} nx={nx} nu={nu} S={with_S} {dtype}"
+    _close(f"parallel dX vs JAX {tag}", tX.numpy(), np.asarray(jX), rtol, atol)
+    _close(f"parallel dU vs JAX {tag}", tU.numpy(), np.asarray(jU), rtol, atol)
+    _close(f"parallel dX vs serial {tag}", tX.numpy(), sX.numpy(), rtol, atol)
+    _close(f"parallel dU vs serial {tag}", tU.numpy(), sU.numpy(), rtol, atol)
+
+
+def test_riccati_solve_parallel_batched_equals_members():
+    """B = 3 problems (S on; A shared by the members, dx0 per member) in one
+    call equal each member's own call."""
+    rng = np.random.default_rng(5)
+    per = [_lqr_np(rng, 9, 3, 2, True, np.float64) for _ in range(3)]
+    shared_A = torch.tensor(per[0][0][0])
+    stacked = [torch.stack([torch.tensor(p[0][i]) for p in per]) for i in range(8)]
+    td = tqp.LQRData(shared_A, *stacked[1:])
+    dx0 = torch.stack([torch.tensor(p[1]) for p in per])
+    bX, bU = tqp.riccati_solve_parallel(td, dx0)
+    assert bX.shape == (3, 10, 3) and bU.shape == (3, 9, 2)
+    for b in range(3):
+        one = tqp.LQRData(shared_A, *(t[b] for t in stacked[1:]))
+        X, U = tqp.riccati_solve_parallel(one, dx0[b])
+        _close(f"batched member {b} dX", bX[b].numpy(), X.numpy(), 1e-12, 1e-14)
+        _close(f"batched member {b} dU", bU[b].numpy(), U.numpy(), 1e-12, 1e-14)
+
+
+def test_riccati_solve_parallel_differentiates():
+    """Autograd (``gradcheck`` in float64, through the S elimination, both
+    scans and the pivoted solves) and ``torch.func.jacrev`` go through the
+    scan; the jacobian in dx0 equals the serial sweep's."""
+    rng = np.random.default_rng(9)
+    leaves, dx0 = _lqr_np(rng, 5, 3, 2, True, np.float64)
+    base = [torch.tensor(a) for a in leaves]
+
+    def solve(qx, ru, S, x0):
+        d = tqp.LQRData(base[0], base[1], base[2], base[3], qx, base[5], ru, S)
+        return tqp.riccati_solve_parallel(d, x0)
+
+    args = tuple(torch.tensor(a, requires_grad=True) for a in (leaves[4], leaves[6], leaves[7],
+                                                                dx0))
+    assert torch.autograd.gradcheck(solve, args)
+
+    def roll(x0, lqr):
+        return lqr(tqp.LQRData(*base), x0)[0]
+
+    jac = torch.func.jacrev(roll)(torch.tensor(dx0), tqp.riccati_solve_parallel)
+    want = torch.func.jacrev(roll)(torch.tensor(dx0), tqp.riccati_solve)
+    _close("jacrev dX/dx0 parallel vs serial", jac.numpy(), want.numpy(), 1e-10, 1e-12)
+
+
+# the scan against the serial sweep, both in float64, on the Newton-step LQRs
+# of a float32 barrier solve at N = 256: seed 0 holds the odd/even scheme's
+# point (Hillis-Steele's scan was 1.1e-2 off there, this one 1.1e-9); on
+# seed 2 the construction itself loses 1.3e-3, in either scheme (ROADMAP §C)
+LONG_STIFF_LIMIT = {0: 1e-7, 2: 5e-3}
+
+
+@pytest.mark.parametrize("seed", list(LONG_STIFF_LIMIT))
+def test_riccati_solve_parallel_long_stiff_lqr(seed):
+    rng = np.random.default_rng(seed)
+    leaves = _random_qp_np(rng, N=256, nx=5, nu=4, n_h=2, with_S=True)
+    dx0 = torch.tensor((0.2 * rng.normal(size=(5,))).astype(np.float32))
+    lqrs = []
+    real = tqp.riccati_solve_parallel
+
+    def spy(data, x0):
+        lqrs.append((tqp.LQRData(*(None if t is None else t.double() for t in data)),
+                     x0.double()))
+        return real(data, x0)
+
+    tqp.riccati_solve_parallel = spy
+    try:
+        tqp.barrier_qp_solve(_torch(leaves), dx0, parallel=True)
+    finally:
+        tqp.riccati_solve_parallel = real
+    assert len(lqrs) == 12
+    err = max(float((real(d, x)[1] - tqp.riccati_solve(d, x)[1]).abs().max()) for d, x in lqrs)
+    print(f"seed {seed}: scan vs serial δU in float64 over 12 Newton LQRs {err:.3e}")
+    assert err <= LONG_STIFF_LIMIT[seed]
+
+
+@pytest.mark.parametrize("n_h,with_S,seed,N,nx,nu", QP_CASES, ids=QP_IDS)
+def test_barrier_qp_solve_parallel_matches_jax(n_h, with_S, seed, N, nx, nu):
+    """``parallel=True`` on both sides (the scan in every Newton step and
+    the scanned condensing roll)."""
+    leaves, dx0 = _case(n_h, with_S, seed, N, nx, nu)
+    jX, jU, jk = jax.jit(lambda qp, x: jqp.barrier_qp_solve(
+        qp, x, num_iters=8, parallel=True, return_kkt=True))(_jax(leaves), jnp.asarray(dx0))
+    tX, tU, tk = tqp.barrier_qp_solve(_torch(leaves), torch.tensor(dx0), num_iters=8,
+                                      parallel=True, return_kkt=True)
+    _close("barrier_qp parallel dU", tU.numpy(), np.asarray(jU), 2e-3, 2e-3)
+    _close("barrier_qp parallel dX", tX.numpy(), np.asarray(jX), 2e-3, 2e-3)
+    _close("barrier_qp parallel kkt", float(tk), float(jk), 5e-2, 1e-4)
 
 
 # --- the torch backend --------------------------------------------------------
@@ -330,13 +472,42 @@ def test_uninstantiated_shape_raises_before_launch():
 
 
 @pytest.mark.parametrize("name,port", [("xla", "torch"), ("pallas", "kernel")])
-def test_sqp_config_rejects_jax_backend_names(name, port):
+def test_sqp_config_rejects_jax_backend_names(name, port, monkeypatch):
+    """The JAX backend names raise, naming the port's; ``parallel_riccati``
+    exists, defaults to True as JAX's does, and picks the torch backend's
+    LQR (the kernel backend does not read it)."""
+    from dnn_mppi_mpc_tpu.config import SQPConfig as JSQPConfig
+    from dnn_mppi_mpc_tpu_torch.models.dynamics import unicycle
+    from dnn_mppi_mpc_tpu_torch.solvers.sqp import NMPCSolver, ocp_params_from_numpy
+
     with pytest.raises(ValueError, match=f"'{port}'"):
         SQPConfig(N=5, dim_x=3, dim_u=2, dt=0.1, qp_backend=name)
     with pytest.raises(ValueError, match="qp_backend"):
         SQPConfig(N=5, dim_x=3, dim_u=2, dt=0.1, qp_backend="hpipm")
-    with pytest.raises(TypeError):
-        SQPConfig(N=5, dim_x=3, dim_u=2, dt=0.1, parallel_riccati=True)
+    cfg = SQPConfig(N=3, dim_x=3, dim_u=2, dt=0.1, qp_iters=2, qp_backend=port)
+    assert cfg.parallel_riccati is True
+    assert JSQPConfig(N=3, dim_x=3, dim_u=2, dt=0.1).parallel_riccati is True
+    calls = {"riccati_solve": 0, "riccati_solve_parallel": 0}
+    for fn in calls:
+        real = getattr(tqp, fn)
+
+        def spy(*a, _real=real, _fn=fn):
+            calls[_fn] += 1
+            return _real(*a)
+
+        monkeypatch.setattr(tqp, fn, spy)
+    params = ocp_params_from_numpy(np.eye(3), np.eye(2), np.eye(3), np.zeros((3, 5)),
+                                   np.ones(3), -np.ones(3) * 5, np.ones(3) * 5, -np.ones(2),
+                                   np.ones(2), device="cpu")
+    x0 = torch.tensor([0.1, 0.2, 0.0])
+    for parallel in (True, False):
+        solver = NMPCSolver(dataclasses.replace(cfg, parallel_riccati=parallel), unicycle,
+                            device="cpu")
+        u0, _, aux = solver.solve(params, solver.init(x0), x0)
+        assert torch.isfinite(u0).all() and int(aux.status) == 0
+    want = {"riccati_solve": 2, "riccati_solve_parallel": 2} if port == "torch" else \
+        {"riccati_solve": 0, "riccati_solve_parallel": 0}
+    assert calls == want, calls
 
 
 @pytest.mark.cuda
