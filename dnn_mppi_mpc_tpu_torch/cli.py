@@ -256,19 +256,15 @@ def cmd_demo(args: argparse.Namespace) -> None:
 # bench
 
 
-def _host_wall(run) -> float:
-    t0 = time.perf_counter()
-    run()
-    return time.perf_counter() - t0
-
-
 def cmd_bench(args: argparse.Namespace) -> None:
     """Ticks a second by the two-chain slope (``utils/benchtime.py``) over
-    eager ticks + plant steps of ``presets.diff_drive_mppi`` at (K, T): the
-    fused tick on the card (CUDA-event walls), the scan path on the CPU (K
-    at most 1 024, host walls)."""
+    ticks + plant steps of ``presets.diff_drive_mppi`` at (K, T), chained by
+    ``scan_chain_runner`` as JAX's command chains them with ``lax.scan``: on
+    the card the fused tick, one tick + plant captured as a CUDA graph and
+    replayed (CUDA-event walls); on the CPU the scan path (K at most 1 024)
+    as eager ticks (host walls)."""
     from . import presets
-    from .utils.benchtime import cuda_event_wall, slope_timing
+    from .utils.benchtime import cuda_event_wall, host_wall, scan_chain_runner, slope_timing
 
     dev = _device(args)
     on_card = dev.type == "cuda"
@@ -278,17 +274,18 @@ def cmd_bench(args: argparse.Namespace) -> None:
         iso_xy=on_card, compute_optimal_traj=False, device=dev)
     step_fn = solver.dynamics_step
 
+    def body(params, state, x):
+        u0, state, aux = solver.step(params, state, x)
+        return (state, step_fn(x, u0)), aux.costs[0]
+
+    st0, x0 = solver.init(), torch.zeros(3, device=dev)
+
     def make_runner(n):
-        def run():
-            state, x = solver.init(), torch.zeros(3, device=dev)
-            for _ in range(n):
-                u0, state, _ = solver.step(params, state, x)
-                x = step_fn(x, u0)
-        return run
+        return scan_chain_runner(body, params, st0, x0, n)
 
     n1, n2 = (20, 100) if on_card else (2, 6)
     timing = slope_timing(make_runner, n1, n2, reps=5 if on_card else 2,
-                          wall=cuda_event_wall if on_card else _host_wall)
+                          wall=cuda_event_wall if on_card else host_wall)
     _emit({
         "metric": f"mppi_solves_per_s_K{solver.cfg.num_samples}_T{args.t}",
         "value": timing.ticks_per_s,
@@ -298,7 +295,7 @@ def cmd_bench(args: argparse.Namespace) -> None:
         "p99_ms": timing.p99 * 1e3,
         "device": torch.cuda.get_device_name(dev) if on_card else "cpu",
         "cuda_fused_tick": on_card,
-        "chain": "eager ticks",
+        "chain": "cuda_graph" if on_card else "eager",
     })
 
 

@@ -11,7 +11,8 @@ Counterpart of ``dnn_mppi_mpc_tpu/models/learned.py``:
 * :class:`Standardizer` — the in-graph feature scaler (population std);
 * :func:`load_flax_mlp` / :func:`load_flax_resnet` — a Flax variable tree,
   given as nested dicts of numpy arrays, into these modules (the card's
-  machine has no Flax, so the loaders read numpy only);
+  machine has no Flax, so the loaders read numpy only); :func:`seeded_mlp_tree`
+  makes an MLP's tree from a numpy seed;
 * :func:`fold_resnet1d_l1_arrays` / :func:`fold_resnet1d_l1` — a ResNet1D
   at L = 1 folded into a dense matmul chain;
 * :func:`make_residual_fn` / :func:`residual_from_train_state` — a module
@@ -347,6 +348,25 @@ def load_flax_mlp(model: MLP, variables: Mapping) -> MLP:
     return model
 
 
+def seeded_mlp_tree(dims=(5, 128, 128, 3), seed: int = 0, head_std: float = 0.002) -> dict:
+    """A Flax ``models.learned.MLP`` variable tree of widths ``dims`` with
+    numpy leaves, from ``np.random.default_rng(seed)``: LeCun-normal kernels,
+    biases N(0, 0.1²), the head's kernel N(0, head_std²) and bias 0; load it
+    with :func:`load_flax_mlp`. The head is not zero (a Flax ``init`` gives
+    a zero head, whose residual is exactly 0) and small: at the default
+    widths the residual is ~0.01 (at most ~0.04) per component, a
+    correction of about a centimetre a step."""
+    rng = np.random.default_rng(seed)
+    params = {}
+    for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
+        head = i == len(dims) - 2
+        kernel = rng.normal(0.0, head_std if head else 1.0 / np.sqrt(a), (a, b))
+        bias = np.zeros(b) if head else rng.normal(0.0, 0.1, b)
+        params[f"Dense_{i}"] = {"kernel": kernel.astype(np.float32),
+                                "bias": bias.astype(np.float32)}
+    return {"params": params}
+
+
 def _load_conv_bn(conv: nn.Conv1d, bn: nn.BatchNorm1d, p: Mapping, s: Mapping, i: int,
                   where: str) -> None:
     cw, bw = f"{where}/Conv_{i}", f"{where}/BatchNorm_{i}"
@@ -547,4 +567,5 @@ __all__ = [
     "make_residual_fn",
     "mlp_forward",
     "residual_from_train_state",
+    "seeded_mlp_tree",
 ]

@@ -500,10 +500,12 @@ def nmpc_fleet(B: int = 128, N: int = 30, qp_backend: str = "kernel", device="cu
                                    qp_backend=qp_backend, device=device, **overrides)
     rng = np.random.default_rng(0)
     ang = rng.uniform(0, 2 * np.pi, B)
-    goals = np.stack([3.0 * np.cos(ang), 3.0 * np.sin(ang), ang], axis=1).astype(np.float32)
+    goals = np.stack([3.0 * np.cos(ang), 3.0 * np.sin(ang), ang], axis=1)
     x0s = rng.uniform(-0.3, 0.3, (B, 3)).astype(np.float32)
-    obs = np.concatenate([0.55 * goals[:, :2], np.full((B, 1), 0.25, np.float32)],
-                         axis=1)[:, None, :]
+    # in float64 and rounded once, as the suite builds them
+    obs = np.concatenate([0.55 * goals[:, :2], np.full((B, 1), 0.25)],
+                         axis=1)[:, None, :].astype(np.float32)
+    goals = goals.astype(np.float32)
     yref = np.concatenate([goals, np.zeros((B, 2), np.float32)], axis=1)[:, None, :]
 
     def member_axis(t):

@@ -47,6 +47,7 @@ import torch
 
 from ..config import resolve_device
 from ..solvers.mppi import MPPISolver, MPPIState
+from ..utils.benchtime import ChainGraph
 
 # the kernel every fused tick launches once: its launches count the ticks
 TICK_KERNEL = "rollout_kernel"
@@ -54,57 +55,21 @@ TICK_KERNEL = "rollout_kernel"
 PACE_TICKS = 200
 
 
-class GraphedTick:
-    """One MPPI tick and one plant step, captured once as a CUDA graph.
-
-    ``state`` (an :class:`MPPIState`) and ``x`` are copied into static
-    buffers (``self.state``, ``self.x``) that every :meth:`replay` advances
-    in place: u_prev, waypoint_idx and key take the tick's next state, x the
-    plant's next state; :meth:`replay` returns u0. On the card the tick is
-    run twice on a side stream before the capture (the kernels' build, the
-    first launches, the solver's one-time checks), with the buffers restored
-    after, so the capture records launches only; the capture raises if any
-    operation in the tick cannot be captured (a host sync, an allocation
-    outside the graph's pool). On the CPU, where CUDA graphs do not exist,
-    :meth:`replay` runs the same body eagerly."""
+class GraphedTick(ChainGraph):
+    """One MPPI tick and one plant step, captured once as a CUDA graph: a
+    :class:`..utils.benchtime.ChainGraph` whose tick is ``solver.step`` and
+    then ``step_fn``. The real-time loop holds a solver and a plant step,
+    not a ``body``; this class makes its tick from them in one place. Every
+    :meth:`replay` advances ``self.state`` (u_prev, waypoint_idx, key) and
+    ``self.x`` in place and returns u0 (``self.y``); on the CPU it runs the
+    same body eagerly."""
 
     def __init__(self, solver: MPPISolver, params, step_fn, state: MPPIState, x: torch.Tensor):
-        self.solver, self.params, self.step_fn = solver, params, step_fn
-        self.state = MPPIState(u_prev=state.u_prev.clone(),
-                               waypoint_idx=state.waypoint_idx.clone(), key=state.key.clone())
-        self.x = x.clone()
-        self.graph = None
-        if not x.is_cuda:
-            return
-        bufs = (self.state.u_prev, self.state.waypoint_idx, self.state.key, self.x)
-        start = [b.clone() for b in bufs]
-        side = torch.cuda.Stream(x.device)
-        side.wait_stream(torch.cuda.current_stream(x.device))
-        with torch.cuda.stream(side):
-            for _ in range(2):
-                self._body()
-        torch.cuda.current_stream(x.device).wait_stream(side)
-        for b, s in zip(bufs, start):
-            b.copy_(s)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.u0 = self._body()
+        def body(params, st, x):
+            u0, nxt, _ = solver.step(params, st, x)
+            return (nxt, step_fn(x, u0)), u0
 
-    def _body(self) -> torch.Tensor:
-        st = self.state
-        u0, nxt, _ = self.solver.step(self.params, st, self.x)
-        x_next = self.step_fn(self.x, u0)
-        st.u_prev.copy_(nxt.u_prev)
-        st.waypoint_idx.copy_(nxt.waypoint_idx)
-        st.key.copy_(nxt.key)
-        self.x.copy_(x_next)
-        return u0
-
-    def replay(self) -> torch.Tensor:
-        if self.graph is None:
-            return self._body()
-        self.graph.replay()
-        return self.u0
+        super().__init__(body, params, state, x)
 
 
 def card_name() -> str:

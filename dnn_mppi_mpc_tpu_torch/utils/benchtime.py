@@ -8,13 +8,22 @@ chained n1 and n2 > n1 times and take
 which cancels every fixed per-chain cost. A wall is taken with CUDA events
 recorded on the current stream around the chain and ended by an event
 synchronize, so it is device time of work that has finished; there is no
-CPU fallback.
+CPU fallback (:func:`host_wall` times the CPU's runs, whose ops are
+synchronous).
+
+:func:`scan_chain_runner` is the counterpart of JAX's
+``scan_chain_runner`` (``dnn_mppi_mpc_tpu/utils/benchtime.py:100``): where
+JAX chains n ticks on the device as one jitted ``lax.scan``, the card
+replays one tick captured as a CUDA graph (:class:`ChainGraph`) n times, so
+the slope measures the tick and not the host's enqueue of its ops.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import time
 from dataclasses import dataclass
-from typing import Callable, List
+from typing import Callable, List, Sequence
 
 import torch
 
@@ -87,4 +96,137 @@ def slope_timing(
     )
 
 
-__all__ = ["SlopeTiming", "cuda_event_wall", "slope_timing"]
+def host_wall(run: Callable[[], None]) -> float:
+    """Seconds of ``run()`` on the host's clock."""
+    t0 = time.perf_counter()
+    run()
+    return time.perf_counter() - t0
+
+
+def _leaves(state) -> List[str]:
+    """The names of the tensor fields of a dataclass state."""
+    return [f.name for f in dataclasses.fields(state)
+            if isinstance(getattr(state, f.name), torch.Tensor)]
+
+
+def _shares_storage(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.untyped_storage().data_ptr() == b.untyped_storage().data_ptr()
+
+
+class ChainGraph:
+    """One tick of ``body(params, state, x) -> ((state, x), y)`` over static
+    buffers, captured once as a CUDA graph on the card.
+
+    ``state`` is a dataclass of tensors (an ``MPPIState``, an ``NMPCState``,
+    a fleet's with its leading B); ``self.state`` and ``self.x`` hold copies
+    of ``st0`` and ``x0`` that each :meth:`replay` advances in place: the
+    tick is ``body`` and then a copy of every tensor leaf of the new state
+    and of the new x into the buffers (a new leaf that shares memory with a
+    buffer is cloned first, so no buffer is read after it is written).
+    :meth:`replay` returns the tick's y, a tensor of the graph's pool that
+    the next replay overwrites.
+
+    On the card the tick runs twice on a side stream before the capture
+    (the kernels' build, their first launches, the solvers' one-time host
+    checks), the buffers are restored, and then the capture records the
+    launches alone (``runtime.realtime_bench.GraphedTick`` is the real-time
+    loop's tick + plant as one). Each
+    ``torch.Generator`` the tick draws from must be in ``generators``: it is
+    registered with the graph, so each replay advances it as an eager tick
+    does. A tick that cannot be captured (a host sync, a pageable
+    host-to-device copy, an allocation outside the graph's pool) raises;
+    nothing falls back to eager ticks. On the CPU, where CUDA graphs do not
+    exist, :meth:`replay` runs the tick eagerly."""
+
+    def __init__(self, body, params, st0, x0: torch.Tensor,
+                 generators: Sequence[torch.Generator] = ()):
+        self.body, self.params = body, params
+        self.names = _leaves(st0)
+        self.state = dataclasses.replace(
+            st0, **{n: getattr(st0, n).clone() for n in self.names})
+        self.x = x0.clone()
+        self.y = None
+        self.graph = None
+        if not x0.is_cuda:
+            return
+        dev = x0.device
+        start = [b.clone() for b in self.buffers()]
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                self._tick()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        for b, s in zip(self.buffers(), start):
+            b.copy_(s)
+        self.graph = torch.cuda.CUDAGraph()
+        for g in generators:
+            self.graph.register_generator_state(g)
+        # thread_local: a watchdog thread (NCCL's) may query its events while
+        # this thread captures
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self.y = self._tick()
+
+    def buffers(self) -> List[torch.Tensor]:
+        """The state's tensor leaves, then x: the tick's static buffers."""
+        return [getattr(self.state, n) for n in self.names] + [self.x]
+
+    def _tick(self):
+        (st, x), y = self.body(self.params, self.state, self.x)
+        bufs = self.buffers()
+        new = [getattr(st, n) for n in self.names] + [x]
+        new = [t.clone() if t is not b and any(_shares_storage(t, c) for c in bufs) else t
+               for t, b in zip(new, bufs)]
+        for b, t in zip(bufs, new):
+            if t is not b:
+                b.copy_(t)
+        return y
+
+    def load(self, st0, x0: torch.Tensor) -> None:
+        """Copy ``st0`` and ``x0`` into the buffers."""
+        for n in self.names:
+            getattr(self.state, n).copy_(getattr(st0, n))
+        self.x.copy_(x0)
+
+    def replay(self):
+        """One tick; returns its y."""
+        if self.graph is None:
+            self.y = self._tick()
+        else:
+            self.graph.replay()
+        return self.y
+
+
+def scan_chain_runner(body, params, st0, x0: torch.Tensor, n: int, sync=None,
+                      generators: Sequence[torch.Generator] = ()):
+    """A zero-argument runner of n ticks of ``body(params, state, x) ->
+    ((state, x), y)`` chained from ``st0`` and ``x0``; it returns the final
+    x and the last y (tensors of the runner's buffers, which its next call
+    overwrites). The contract of JAX's ``scan_chain_runner``.
+
+    On the card one tick is captured as a CUDA graph (:class:`ChainGraph`,
+    with ``generators``) when the runner is made; each call copies st0 and
+    x0 into its buffers and replays the graph n times. A replay costs the
+    host a few µs and the start copy cancels in a slope; n ticks are never
+    captured as one graph, which would hold n times the tick's nodes. On the
+    CPU the runner runs ``body`` eagerly n times. ``sync``, when given, is
+    called on (x, y) after the chain: JAX's place for its fetch barrier. A
+    wall of :func:`cuda_event_wall` needs none, since its end event's
+    synchronize is the barrier."""
+    tick = ChainGraph(body, params, st0, x0, generators)
+
+    def run():
+        tick.load(st0, x0)
+        y = None
+        for _ in range(n):
+            y = tick.replay()
+        if sync is not None:
+            sync(tick.x, y)
+        return tick.x, y
+
+    run.tick = tick
+    return run
+
+
+__all__ = ["ChainGraph", "SlopeTiming", "cuda_event_wall", "host_wall", "scan_chain_runner",
+           "slope_timing"]
