@@ -150,7 +150,7 @@ class DmmQPArgs(ctypes.Structure):
         ("b_stride", ctypes.c_longlong * QP_TABLES),
         ("s_stride", ctypes.c_longlong * QP_TABLES),
         ("r_stride", ctypes.c_longlong * QP_TABLES),
-    ] + [(name, ctypes.c_void_p) for name in ("dX", "dU", "kkt")] + [
+    ] + [(name, ctypes.c_void_p) for name in ("dX", "dU", "kkt", "work")] + [
         (name, ctypes.c_int)
         for name in ("Bn", "N", "nx", "nu", "n_h", "num_iters", "has_S", "stage_floats")
     ]

@@ -43,8 +43,17 @@
 //     a __shfl_xor_sync tree of minp gives α; each lane updates its stages,
 //     a tree of maxp gives kkt.
 // Then one lane rolls δU through the dynamics and the warp writes δX, δU
-// out, coalesced. Shared memory a problem: (N + 1) records (qp_stage_floats
-// in ops/cuda/riccati_qp.py mirrors the count; the launch checks it).
+// out, coalesced. A problem takes (N + 1) records (qp_stage_floats in
+// ops/cuda/riccati_qp.py mirrors the count; the launch checks it).
+//
+// Any horizon: where the records do not fit in one block's shared memory
+// (227 KB), the wrapper hands a device-memory workspace of Bn·(N + 1)
+// records (DmmQPArgs::work) and the kernel's second instantiation
+// (kWorkspace) keeps problem b's records at work + b·(N + 1)·stage_floats
+// instead, with the same code and the same order of operations. Its
+// launch asks for the largest L1 carveout, since the serial phases B and C
+// then read their records through L1 and L2; a problem at (5, 4), N = 300
+// takes ~0.28 MB, so a fleet of 128 stays in the 50 MB L2.
 //
 // The operations run in the Pallas body's order (sums left to right from the
 // first term, the same symmetrisations, pivoting and selects; every element
@@ -86,6 +95,7 @@ struct DmmQPArgs {
   float* dX;   // out (Bn, N+1, nx)
   float* dU;   // out (Bn, N, nu)
   float* kkt;  // out (Bn,)
+  float* work;  // Bn·(N + 1)·stage_floats floats of records, or null: shared memory
   int Bn;
   int N;
   int nx;
@@ -596,12 +606,19 @@ struct Problem {
   }
 };
 
-template <int NX, int NU>
-__global__ void __launch_bounds__(32) barrier_qp_kernel(DmmQPArgs a) {
+// kWorkspace: the records in device memory at a.work (any N), else in the
+// block's dynamic shared memory. One block an SM at least: without it ptxas
+// held the workspace (4, 4) instantiation to 128 registers and spilled 8
+// bytes to the stack; with it every instantiation takes what it needs
+// (up to 168) and none spills (cuobjdump -res-usage).
+template <int NX, int NU, bool kWorkspace>
+__global__ void __launch_bounds__(32, 1) barrier_qp_kernel(DmmQPArgs a) {
   extern __shared__ float smem[];
   const int lane = threadIdx.x, b = blockIdx.x;
   const int N = a.N, SS = a.stage_floats;
-  Problem<NX, NU> pr{smem, SS, N, a.n_h, lane, a.has_S != 0};
+  float* const rec =
+      kWorkspace ? a.work + static_cast<size_t>(b) * static_cast<size_t>(N + 1) * SS : smem;
+  Problem<NX, NU> pr{rec, SS, N, a.n_h, lane, a.has_S != 0};
   using RC = Rec<NX, NU>;
 
   // stage the tables, coalesced: consecutive lanes read consecutive floats
@@ -636,6 +653,7 @@ __global__ void __launch_bounds__(32) barrier_qp_kernel(DmmQPArgs a) {
     for (int i = lane; i <= N; i += 32) pr.fold(i, mu, k_);
     __syncwarp();
     pr.backward(k_.reg);
+    __syncwarp();  // the gains that lanes 0..NX stored, seen by lane 0
     if (lane == 0) pr.forward();
     __syncwarp();
     kkt = pr.bound_and_update(k_);
@@ -691,20 +709,34 @@ __global__ void __launch_bounds__(32) barrier_qp_kernel(DmmQPArgs a) {
 template <int NX, int NU>
 cudaError_t launch_qp(const DmmQPArgs& a, cudaStream_t s) {
   if (a.stage_floats != stage_floats<NX, NU>(a.n_h, a.has_S)) return cudaErrorInvalidValue;
-  const size_t bytes = sizeof(float) * static_cast<size_t>(a.stage_floats) * (a.N + 1);
-  // the opt-in above 48 KB, once per instantiation and card
-  static size_t opted[64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
+  if (a.work != nullptr) {
+    // the records in device memory: no shared memory, so the SM's 256 KB
+    // go to L1 (asked once per instantiation and card)
+    static bool carved[64] = {};
+    if (dev >= 64 || !carved[dev]) {
+      err = cudaFuncSetAttribute(barrier_qp_kernel<NX, NU, true>,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxL1);
+      if (err != cudaSuccess) return err;
+      if (dev < 64) carved[dev] = true;
+    }
+    barrier_qp_kernel<NX, NU, true><<<a.Bn, 32, 0, s>>>(a);
+    return cudaGetLastError();
+  }
+  const size_t bytes = sizeof(float) * static_cast<size_t>(a.stage_floats) * (a.N + 1);
+  // the opt-in above 48 KB, once per instantiation and card
+  static size_t opted[64] = {};
   if (bytes > 48 * 1024 && (dev >= 64 || bytes > opted[dev])) {
-    err = cudaFuncSetAttribute(barrier_qp_kernel<NX, NU>,
+    err = cudaFuncSetAttribute(barrier_qp_kernel<NX, NU, false>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(bytes));
     if (err != cudaSuccess) return err;
     if (dev < 64) opted[dev] = bytes;
   }
-  barrier_qp_kernel<NX, NU><<<a.Bn, 32, bytes, s>>>(a);
+  barrier_qp_kernel<NX, NU, false><<<a.Bn, 32, bytes, s>>>(a);
   return cudaGetLastError();
 }
 
@@ -715,10 +747,10 @@ extern "C" {
 // sizeof(DmmQPArgs), checked against the ctypes mirror at load time.
 int dmm_qp_args_size() { return static_cast<int>(sizeof(DmmQPArgs)); }
 
-// The fused QP for Bn problems (Bn = 1: the per-problem solve). Shapes
-// instantiated: 2 ≤ nx ≤ 5, 1 ≤ nu ≤ min(nx, 4); any other, or a stage
-// record length other than the kernel's, returns cudaErrorInvalidValue
-// without launching.
+// The fused QP for Bn problems (Bn = 1: the per-problem solve), the records
+// in shared memory, or in a.work when it is not null. Shapes instantiated:
+// 2 ≤ nx ≤ 5, 1 ≤ nu ≤ min(nx, 4); any other, or a stage record length
+// other than the kernel's, returns cudaErrorInvalidValue without launching.
 int dmm_barrier_qp(const DmmQPArgs* args, void* stream) {
   const DmmQPArgs a = *args;
   if (a.Bn < 1 || a.N < 1 || a.n_h < 0 || a.num_iters < 1)

@@ -24,13 +24,16 @@ problem, stage and row strides (0 for a shared leaf or a stage-invariant
 one; nx + nu for the linearization's A and B, column blocks of one
 Jacobian), and the outputs are written (B, N+1, nx), (B, N, nu) and (B,).
 
-The horizon is bounded by shared memory: a problem takes (N + 1) stage
-records of :func:`qp_stage_floats` floats, and one block may hold 227 KB
-(232 448 bytes), so N ≤ :func:`qp_max_horizon` (nx, nu, n_h, S): 234 at
-(5, 4) with two h rows and S, 637 at (3, 2) with two h rows, 1 416 at
-(2, 1) without; every instantiated (nx, nu) takes N = 100 with two h rows
-and S. A longer horizon raises ``ValueError`` before the launch, naming the
-largest N.
+Any horizon runs. A problem takes (N + 1) stage records of
+:func:`qp_stage_floats` floats. Up to :func:`qp_max_horizon` (nx, nu, n_h,
+S) they sit in the block's shared memory, which holds 227 KB (232 448
+bytes): N = 234 at (5, 4) with two h rows and S, 637 at (3, 2) with two h
+rows, 1 416 at (2, 1) without. Past it the wrapper allocates a device-memory
+workspace of B·(N + 1) records on the caller's stream (the caching
+allocator, so a CUDA graph captures it) and the kernel's workspace
+instantiation keeps the records there (:func:`qp_uses_workspace`): the same
+code in the same order of operations, so either route equals the plain
+version bit for bit.
 
 On CUDA tensors each launches the kernel; on CPU tensors each runs its plain
 version, the same algorithm in plain PyTorch in the kernel's order of
@@ -356,20 +359,16 @@ def qp_smem_bytes(N: int, nx: int, nu: int, n_h: int, has_S: bool) -> int:
 
 
 def qp_max_horizon(nx: int, nu: int, n_h: int, has_S: bool) -> int:
-    """The largest N whose problem fits in one block's shared memory."""
+    """The largest N whose problem fits in one block's shared memory: the
+    boundary between the kernel's two routes."""
     return MAX_SMEM_OPT_IN // (4 * qp_stage_floats(nx, nu, n_h, has_S)) - 1
 
 
-def check_horizon(N: int, nx: int, nu: int, n_h: int, has_S: bool) -> None:
-    """Raise ``ValueError`` unless one problem of horizon N fits in a block's
-    shared memory (the check before every launch)."""
-    need = qp_smem_bytes(N, nx, nu, n_h, has_S)
-    if need > MAX_SMEM_OPT_IN:
-        raise ValueError(
-            f"the fused QP kernel keeps a problem's N + 1 stage records in shared memory: "
-            f"N = {N} at (nx, nu) = ({nx}, {nu}) with n_h = {n_h}{' and S' if has_S else ''} "
-            f"needs {need} bytes, over the {MAX_SMEM_OPT_IN} a block may have; the largest N "
-            f"for this shape is {qp_max_horizon(nx, nu, n_h, has_S)}")
+def qp_uses_workspace(N: int, nx: int, nu: int, n_h: int, has_S: bool) -> bool:
+    """Whether a problem of horizon N keeps its records in a device-memory
+    workspace (they do not fit in a block's shared memory) rather than in
+    shared memory."""
+    return qp_smem_bytes(N, nx, nu, n_h, has_S) > MAX_SMEM_OPT_IN
 
 
 def _table(t: torch.Tensor):
@@ -405,25 +404,27 @@ def _launch(leaves, dx0, B, num_iters, mu0, kappa, delta, stiffness, h_stiffness
     n_h = 0 if leaves["Jh"] is None else leaves["Jh"].shape[2]
     has_S = leaves["S"] is not None
     _check_dims(N, nx, nu, n_h, leaves, B, num_iters)
-    check_horizon(N, nx, nu, n_h, has_S)
+    stage_floats = qp_stage_floats(nx, nu, n_h, has_S)
     dev = dx0.device
     mus, misc = qp_schedule(num_iters, mu0, kappa, delta, stiffness, h_stiffness, h_slope, dev)
     tabs = kernel_tables(leaves, dx0)
     dX = torch.empty((B, N + 1, nx), dtype=torch.float32, device=dev)
     dU = torch.empty((B, N, nu), dtype=torch.float32, device=dev)
     kkt = torch.empty((B,), dtype=torch.float32, device=dev)
+    work = (torch.empty((B * (N + 1) * stage_floats,), dtype=torch.float32, device=dev)
+            if qp_uses_workspace(N, nx, nu, n_h, has_S) else None)
     args = DmmQPArgs(
         mus=mus.data_ptr(), misc=misc.data_ptr(), dX=dX.data_ptr(), dU=dU.data_ptr(),
-        kkt=kkt.data_ptr(), Bn=B, N=N, nx=nx, nu=nu, n_h=n_h, num_iters=num_iters,
-        has_S=int(has_S), stage_floats=qp_stage_floats(nx, nu, n_h, has_S),
+        kkt=kkt.data_ptr(), work=None if work is None else work.data_ptr(), Bn=B, N=N, nx=nx,
+        nu=nu, n_h=n_h, num_iters=num_iters, has_S=int(has_S), stage_floats=stage_floats,
     )
     assert len(tabs) == QP_TABLES
     for j, (t, b_stride, s_stride, r_stride) in enumerate(tabs):
         args.tab[j] = None if t is None else t.data_ptr()
         args.b_stride[j], args.s_stride[j], args.r_stride[j] = b_stride, s_stride, r_stride
-    # a table copied above is freed when this returns, to the caching
-    # allocator, which hands its memory only to work queued after this launch
-    # on its stream
+    # a table copied above, and the workspace, are freed when this returns,
+    # to the caching allocator, which hands their memory only to work queued
+    # after this launch on its stream
     launch("dmm_barrier_qp", args, dev)
     return dX, dU, kkt
 
@@ -441,8 +442,8 @@ def fused_barrier_qp_solve(qp, dx0: torch.Tensor, num_iters: int = 12, mu0: floa
     without a batch dimension, dx0 (nx,)) in one launch: (δX (N+1, nx),
     δU (N, nu), kkt ()), float32. ``stiffness`` defaults to 1/δ² and
     ``h_stiffness`` to ``stiffness``; ``h_slope`` is the L1 slope of the
-    soft h rows. N is bounded by shared memory (:func:`qp_max_horizon`;
-    ``ValueError`` beyond it). ``backward`` ("ift" or "recompute") is the
+    soft h rows. Any N (past :func:`qp_max_horizon` the records go to a
+    device-memory workspace). ``backward`` ("ift" or "recompute") is the
     gradient rule when an input requires grad."""
     _check_backward(backward)
     if dx0.dim() != 1 or qp.A.dim() != 3:
@@ -475,9 +476,8 @@ def batched_fused_barrier_qp_solve(qp, dx0: torch.Tensor, num_iters: int = 12,
     """Solve B independent relaxed-barrier QPs in one launch, one warp per
     problem: (δX (B, N+1, nx), δU (B, N, nu), kkt (B,)), float32. Every leaf
     (and dx0) carries a leading B or is shared by all members; member b's
-    result is the per-problem solve of member b's problem. N is bounded by
-    shared memory (:func:`qp_max_horizon`; ``ValueError`` beyond it).
-    ``backward`` as in :func:`fused_barrier_qp_solve`; a shared leaf's
+    result is the per-problem solve of member b's problem. Any N, as in
+    :func:`fused_barrier_qp_solve`. ``backward`` as there; a shared leaf's
     gradient is the sum over the members."""
     _check_backward(backward)
     if _needs_grad(qp, dx0):
@@ -591,7 +591,6 @@ __all__ = [
     "batch_leaves",
     "batched_fused_barrier_qp_solve",
     "batched_fused_barrier_qp_solve_plain",
-    "check_horizon",
     "fused_barrier_qp_solve",
     "fused_barrier_qp_solve_plain",
     "kernel_tables",
@@ -599,4 +598,5 @@ __all__ = [
     "qp_schedule",
     "qp_smem_bytes",
     "qp_stage_floats",
+    "qp_uses_workspace",
 ]

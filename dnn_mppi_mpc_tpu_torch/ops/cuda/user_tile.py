@@ -75,10 +75,10 @@ changed raises ``ValueError`` naming it (lift the step anew).
 Devices. The step is traced on fake CPU tiles, or on fake CUDA tiles when
 the step captures card tensors (its weights on the card).
 
-Refused: any other ATen op raises ``ValueError`` naming it — ``linalg_solve``
-(``irk_step``), a reduction, an in-place update, a product of two traced
-values —, as does a step that returns another number of state dims than nx,
-or one that is not (K,) float32. Nothing falls back.
+Refused: any other ATen op raises ``ValueError`` naming it — ``argmax`` and
+``gather`` (``irk_step``'s pivoted solve), a reduction, an in-place update, a
+product of two traced values —, as does a step that returns another number
+of state dims than nx, or one that is not (K,) float32. Nothing falls back.
 """
 
 from __future__ import annotations

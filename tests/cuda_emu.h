@@ -62,7 +62,15 @@ inline float4 make_float4(float x, float y, float z, float w) { return float4{x,
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 typedef void* cudaStream_t;
-enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+enum cudaFuncAttribute {
+  cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaFuncAttributePreferredSharedMemoryCarveout
+};
+enum cudaSharedCarveout {
+  cudaSharedmemCarveoutDefault = -1,
+  cudaSharedmemCarveoutMaxL1 = 0,
+  cudaSharedmemCarveoutMaxShared = 100
+};
 
 constexpr size_t kEmuSmemBytes = 232448;  // what one block may opt into on sm_90
 alignas(16) inline float emu_smem[kEmuSmemBytes / sizeof(float)];
@@ -209,8 +217,10 @@ inline unsigned __ballot_sync(unsigned mask, int pred) {
 inline int __any_sync(unsigned mask, int pred) { return __ballot_sync(mask, pred) != 0; }
 
 template <class F>
-inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int bytes) {
-  return bytes <= static_cast<int>(kEmuSmemBytes) ? cudaSuccess : cudaErrorInvalidValue;
+inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute attr, int value) {
+  if (attr == cudaFuncAttributePreferredSharedMemoryCarveout)  // a percentage, or -1
+    return value >= -1 && value <= 100 ? cudaSuccess : cudaErrorInvalidValue;
+  return value <= static_cast<int>(kEmuSmemBytes) ? cudaSuccess : cudaErrorInvalidValue;
 }
 inline cudaError_t cudaGetDevice(int* d) {
   *d = 0;

@@ -2,8 +2,11 @@
 
 * the integrators: ``erk_step`` on the unicycle (rtol 1e-6), the
   Gauss-Legendre tableau (1e-12), ``irk_step`` on the four-wheel torque
-  model (rtol 1e-5); ``_linearize``'s A, B and c through ERK and IRK
-  (rtol/atol 1e-5);
+  model (rtol 1e-5); its Newton solve (``pivoted_solve``) against
+  ``jnp.linalg.solve`` on seeded IRK Newton systems and an ill-conditioned
+  one that needs row swaps, and its Jacobians under ``vmap(jacrev)``
+  against JAX's ``vmap(jacfwd)``; ``_linearize``'s A, B and c through ERK
+  and IRK (rtol/atol 1e-5);
 * one tick of ``presets.diff_drive_nmpc(N=30, two obstacles, sqp_iters=1,
   device="cpu")`` from the same warm start as the JAX solver: the torch QP
   backend's serial sweep against JAX ``qp_backend="xla",
@@ -151,6 +154,68 @@ def test_irk_step_matches_jax():
     _close("irk_step", got.numpy(), np.asarray(want), 1e-5, 1e-6)
     one = tint.irk_step(tdyn.four_wheel_torque, torch.tensor(x[0]), torch.tensor(u[0]), 0.1)
     _close("irk_step unbatched", one.numpy(), np.asarray(want[0]), 1e-5, 1e-6)
+
+
+def _irk_newton_systems(seed: int, count: int, dt: float = 0.1, s: int = 4):
+    """The IRK Newton systems M·dK = −r (M = I − h·(A⊗J), 20 × 20) that
+    ``irk_step`` solves first at ``count`` seeded four-wheel states and
+    torques: the explicit-Euler stage init, J at each stage state."""
+    A = torch.tensor(tint._gauss_legendre_tableau(s)[1], dtype=torch.float32)
+    h, nx = dt / 3, 5
+    rng = np.random.default_rng(seed)
+    Ms, rs = [], []
+    for _ in range(count):
+        x = torch.tensor((0.5 * rng.normal(size=nx)).astype(np.float32))
+        u = torch.tensor((2.0 * rng.normal(size=4)).astype(np.float32))
+
+        def f(q, u=u):
+            return tdyn.four_wheel_torque(q, u)
+
+        K = f(x).expand(s, nx)
+        X_st = x[None] + h * (A @ K)
+        J = torch.func.vmap(torch.func.jacrev(f))(X_st)
+        M = torch.eye(s * nx) - h * (A[:, :, None, None] * J[:, None]).permute(
+            0, 2, 1, 3).reshape(s * nx, s * nx)
+        Ms.append(M)
+        rs.append((K - torch.func.vmap(f)(X_st)).reshape(-1))
+    return torch.stack(Ms), torch.stack(rs)
+
+
+def test_pivoted_solve_matches_jax_on_irk_newton_systems():
+    """``pivoted_solve``, the IRK's Newton solve, against ``jnp.linalg.solve``
+    (LAPACK's partial-pivot LU) on six seeded four-wheel Newton systems
+    (vmapped, as the tick batches them) within rtol/atol 1e-6; and on an
+    ill-conditioned one (cond ~4e4) whose rows are rolled so that column
+    0's largest entry lies below row 0 (no elimination step without a row
+    swap), within 1e-6 of the solution's largest entry."""
+    M, r = _irk_newton_systems(0, 6)
+    got = torch.func.vmap(tint.pivoted_solve)(M, -r)
+    want = jax.vmap(jnp.linalg.solve)(jnp.asarray(M.numpy()), jnp.asarray(-r.numpy()))
+    _close("pivoted_solve, Newton systems", got.numpy(), np.asarray(want), 1e-6, 1e-6)
+
+    rng = np.random.default_rng(3)
+    Mi = M[0].numpy().astype(np.float64)[np.roll(np.arange(20), 7)]
+    Mi[19] += Mi[:19].T @ rng.normal(size=19) * 0.05 + 1e-4 * rng.normal(size=20) - Mi[19]
+    Mi = Mi.astype(np.float32)
+    assert np.linalg.cond(Mi.astype(np.float64)) > 1e4
+    assert abs(Mi[0, 0]) < np.abs(Mi[:, 0]).max()  # the first pivot is a swapped row
+    b = rng.normal(size=20).astype(np.float32)
+    got = tint.pivoted_solve(torch.tensor(Mi), torch.tensor(b)).numpy()
+    want = np.asarray(jnp.linalg.solve(jnp.asarray(Mi), jnp.asarray(b)))
+    _close("pivoted_solve, ill-conditioned", got, want, 0.0, 1e-6 * np.abs(want).max())
+
+
+def test_pivoted_solve_differentiates_under_vmap():
+    """``vmap(jacrev(...))`` through the solve, as the SQP engine linearizes
+    through ``irk_step`` (``solvers/sqp.py _linearize``): the Jacobians in M
+    and in the right-hand side against JAX's ``vmap(jacfwd)`` of
+    ``jnp.linalg.solve`` (1e-5)."""
+    M, r = _irk_newton_systems(4, 3)
+    dM, db = torch.func.vmap(torch.func.jacrev(tint.pivoted_solve, argnums=(0, 1)))(M, r)
+    jM, jb = jax.vmap(jax.jacfwd(jnp.linalg.solve, argnums=(0, 1)))(
+        jnp.asarray(M.numpy()), jnp.asarray(r.numpy()))
+    _close("d solve / d M", dM.numpy(), np.asarray(jM), 1e-5, 1e-5)
+    _close("d solve / d b", db.numpy(), np.asarray(jb), 1e-5, 1e-5)
 
 
 @pytest.mark.parametrize("integrator", ["erk", "irk"])

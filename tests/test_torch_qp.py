@@ -13,9 +13,10 @@
   δX rtol/atol 2e-3, kkt rtol 5e-2 atol 1e-4);
 * ``fused_barrier_qp_solve`` (on CPU tensors, its plain version) against
   the JAX kernel ``pallas_barrier_qp_solve(interpret=True)`` on the same
-  cases: the same algorithm in the same order in two frameworks, held to
-  rtol/atol 1e-4 because the barrier stiffness 1/δ² = 1e6 can magnify a
-  rounding difference;
+  cases and the four-wheel shape at N = 300 (past the card kernel's shared
+  memory: its workspace route): the same algorithm in the same order in
+  two frameworks, held to rtol/atol 1e-4 because the barrier stiffness
+  1/δ² = 1e6 can magnify a rounding difference;
 * ``batched_fused_barrier_qp_solve`` (plain) against JAX
   ``pallas_batched_barrier_qp_solve(interpret=True)`` at B = 5 (1e-4), member
   by member against the port's per-problem plain version (2e-5, as
@@ -118,6 +119,10 @@ QP_CASES = [
     (2, True, 42, 10, 5, 4),
 ]
 QP_IDS = ["nh0", "nh2", "S", "nh2_S", "four_wheel"]
+# the four-wheel shape at N = 300, past what the kernel holds in shared
+# memory (qp_max_horizon 234 there): the kernel's workspace route, whose
+# plain version is the same; JAX's kernel takes any N
+LONG_QP_CASE = (2, True, 42, 300, 5, 4)
 
 
 def _case(n_h, with_S, seed, N, nx, nu):
@@ -341,7 +346,8 @@ def test_barrier_qp_solve_batched_equals_members():
 # --- the kernel's plain versions ------------------------------------------------
 
 
-@pytest.mark.parametrize("n_h,with_S,seed,N,nx,nu", QP_CASES, ids=QP_IDS)
+@pytest.mark.parametrize("n_h,with_S,seed,N,nx,nu", QP_CASES + [LONG_QP_CASE],
+                         ids=QP_IDS + ["four_wheel_N300"])
 def test_fused_qp_plain_matches_jax_kernel(n_h, with_S, seed, N, nx, nu):
     leaves, dx0 = _case(n_h, with_S, seed, N, nx, nu)
     jX, jU, jk = pallas_barrier_qp_solve(_jax(leaves), jnp.asarray(dx0), num_iters=8,

@@ -10,7 +10,11 @@ shared-memory record count). So the kernel's indexing, its four phases,
 the shuffles of phase B and the warp trees are checked here, where there
 is no card, for each of the 13 instantiated (nx, nu): every case must
 equal the plain version (``_qp_plain``) bit for bit, as the kernel equals
-it on the card (``chip_smoke.py``). Also: the C struct's size against the ctypes mirror,
+it on the card (``chip_smoke.py``). The same cases, and a batch of five,
+run again on the kernel's device-memory route (the records in a workspace
+put into the argument block, as the wrapper does past ``qp_max_horizon``;
+the workspace filled with NaN first, so a record read before it is written
+shows). Also: the C struct's size against the ctypes mirror,
 and the launch's refusals (a record count other than the kernel's, no
 problem, no stage, no iteration, an uninstantiated shape). Skips without
 g++.
@@ -127,6 +131,56 @@ CASES = [
 def test_kernel_source_equals_plain_one_problem(emu, N, nx, nu, n_h, with_S, iters):
     qp, dx0 = _random_qp(np.random.default_rng(N * 10 + nx), N, nx, nu, n_h, with_S, 1)
     _assert_equal(*_solve_both(qp, dx0, iters))
+
+
+@pytest.fixture
+def workspace(emu, monkeypatch):
+    """``_launch``'s own argument block with a workspace of Bn·(N + 1)
+    records (NaN-filled) put in before the C entry runs it: the route the
+    wrapper takes past ``qp_max_horizon``. Yields the workspaces handed over."""
+    given = []
+
+    def launch(entry, args, device):
+        assert entry == "dmm_barrier_qp" and args.work is None
+        work = torch.full((args.Bn * (args.N + 1) * args.stage_floats,), float("nan"))
+        given.append(work)
+        args.work = work.data_ptr()
+        err = emu.dmm_barrier_qp(ctypes.addressof(args), None)
+        if err != 0:
+            raise RuntimeError(f"{entry}: error {err} at launch")
+
+    monkeypatch.setattr(rq, "launch", launch)
+    yield given
+
+
+@pytest.mark.parametrize("N,nx,nu,n_h,with_S,iters", CASES,
+                         ids=[f"N{c[0]}_{c[1]}{c[2]}_nh{c[3]}{'_S' if c[4] else ''}"
+                              for c in CASES])
+def test_workspace_route_equals_plain_one_problem(workspace, N, nx, nu, n_h, with_S, iters):
+    qp, dx0 = _random_qp(np.random.default_rng(N * 10 + nx), N, nx, nu, n_h, with_S, 1)
+    _assert_equal(*_solve_both(qp, dx0, iters))
+    (work,) = workspace
+    assert work.numel() == (N + 1) * rq.qp_stage_floats(nx, nu, n_h, with_S)
+    # the records were written there: the iterate at stage 0 is dx0
+    assert not bool(torch.isnan(work).all())
+
+
+def test_workspace_route_equals_plain_batched(workspace):
+    """B = 5 problems at (5, 4), two h rows and S, each at its own offset of
+    the workspace, with one leaf shared by all (problem stride 0)."""
+    B, N, nx = 5, 12, 5
+    qp, dx0 = _random_qp(np.random.default_rng(5), N, nx, 4, 2, True, B)
+    qp = qp._replace(ubx=qp.ubx[0])
+    got, want = _solve_both(qp, dx0, 4)
+    _assert_equal(got, want)
+    (work,) = workspace
+    ss = rq.qp_stage_floats(nx, 4, 2, True)
+    assert work.numel() == B * (N + 1) * ss
+    # problem b's records at b·(N + 1)·stage_floats: their δx field (offset
+    # nx² + 3·nx in csrc/riccati_qp.cu Rec) holds b's own δX
+    records = work.reshape(B, N + 1, ss)
+    dx_off = nx * nx + 3 * nx
+    assert torch.equal(records[:, :, dx_off:dx_off + nx], got[0])
 
 
 def test_every_instantiation_is_covered():

@@ -1,12 +1,12 @@
 """The fused QP kernel's layout, on the CPU: what the wrappers hand the
-kernel, and the shared-memory budget it is checked against before a launch.
+kernel, and the shared-memory budget that picks its route.
 
 * ``qp_stage_floats`` against a field-by-field count of the stage record
   (csrc/riccati_qp.cu ``Rec``), for the 13 instantiated (nx, nu), n_h ∈
-  {0, 2}, with and without S: N = 100 fits one block; the largest N that
-  ``qp_max_horizon`` names passes ``check_horizon`` and N + 1 raises
-  ``ValueError`` naming it, from ``check_horizon`` and from ``_launch``
-  itself before any launch;
+  {0, 2}, with and without S: N = 100 fits one block; at the largest N that
+  ``qp_max_horizon`` names ``_launch`` hands the kernel no workspace (the
+  records in shared memory), at N + 1 a workspace of (N + 2) records
+  (device memory), and neither raises;
 * ``kernel_tables``: problem-major tables, each the leaf's own memory (a
   view, not a copy) for contiguous leaves, leaves shared by all problems
   (problem stride 0), stage-invariant ones (stage stride 0, the fleet's R)
@@ -54,20 +54,47 @@ def _zero_leaves(B, N, nx, nu, n_h, S):
 
 
 @pytest.mark.parametrize("nx,nu,n_h,S", SHAPES, ids=SHAPE_IDS)
-def test_horizon_budget(nx, nu, n_h, S):
+def test_horizon_budget(nx, nu, n_h, S, monkeypatch):
     assert rq.qp_stage_floats(nx, nu, n_h, S) == _record_floats(nx, nu, n_h, S)
     assert rq.qp_smem_bytes(100, nx, nu, n_h, S) <= MAX_SMEM_OPT_IN
-    rq.check_horizon(100, nx, nu, n_h, S)
+    assert not rq.qp_uses_workspace(100, nx, nu, n_h, S)
     n_max = rq.qp_max_horizon(nx, nu, n_h, S)
     assert n_max >= 100
-    rq.check_horizon(n_max, nx, nu, n_h, S)
+    assert rq.qp_smem_bytes(n_max, nx, nu, n_h, S) <= MAX_SMEM_OPT_IN
     assert rq.qp_smem_bytes(n_max + 1, nx, nu, n_h, S) > MAX_SMEM_OPT_IN
-    with pytest.raises(ValueError, match=f"the largest N for this shape is {n_max}"):
-        rq.check_horizon(n_max + 1, nx, nu, n_h, S)
-    # the wrapper's launch path makes the same check before it launches
-    leaves = _zero_leaves(1, n_max + 1, nx, nu, n_h, S)
-    with pytest.raises(ValueError, match=f"the largest N for this shape is {n_max}"):
+    assert not rq.qp_uses_workspace(n_max, nx, nu, n_h, S)
+    assert rq.qp_uses_workspace(n_max + 1, nx, nu, n_h, S)
+    # the wrapper's launch path: shared memory up to n_max, a workspace of
+    # the problem's records past it; no horizon raises
+    seen = []
+    monkeypatch.setattr(rq, "launch", lambda entry, args, dev: seen.append(args.work))
+    for N in (n_max, n_max + 1):
+        leaves = _zero_leaves(1, N, nx, nu, n_h, S)
         rq._launch(leaves, torch.zeros((1, nx)), 1, 12, 0.1, 0.35, 1e-3, None, None, 0.0)
+    assert seen[0] is None and seen[1] is not None
+
+
+def test_workspace_size(monkeypatch):
+    """Past the boundary the workspace holds B·(N + 1) records of the
+    problem's record length, float32, on the leaves' device."""
+    B, N, nx, nu, n_h = 3, 300, 5, 4, 2
+    assert rq.qp_uses_workspace(N, nx, nu, n_h, True)
+    made = []
+    real_empty = torch.empty
+
+    def empty(*shape, **kw):
+        t = real_empty(*shape, **kw)
+        made.append(t)
+        return t
+
+    seen = []
+    monkeypatch.setattr(rq.torch, "empty", empty)
+    monkeypatch.setattr(rq, "launch", lambda entry, args, dev: seen.append(args.work))
+    rq._launch(_zero_leaves(B, N, nx, nu, n_h, True), torch.zeros((B, nx)), B, 12, 0.1, 0.35,
+               1e-3, None, None, 0.0)
+    (work,) = [t for t in made if t.data_ptr() == seen[0]]
+    assert work.dtype == torch.float32 and work.device.type == "cpu"
+    assert work.numel() == B * (N + 1) * rq.qp_stage_floats(nx, nu, n_h, True)
 
 
 def _addressed(t, b_stride, s_stride, r_stride, b, i, rows, cols):

@@ -238,7 +238,7 @@ REFUSED = {
     "matrix product": (ttile.lift_dynamics(lambda x, u: x + (x @ _WIDE)[..., :3]), 3, 2,
                        "aten.mm.*18000"),
     "irk_step": (ttile.lift_dynamics(lambda x, u: irk_step(tdyn.unicycle, x, u, DT)), 3, 2,
-                 "linalg_solve"),
+                 "aten.argmax"),
     "reduction": (ttile.lift_dynamics(lambda x, u: x + u.sum(-1, keepdim=True)), 3, 2,
                   "aten.sum"),
     "python branching": (ttile.lift_dynamics(_branching), 3, 2, "data-dependent"),
