@@ -21,6 +21,15 @@ the same flags at the step's first launch, into
 ``_build/libdmm_user_<hash>.so`` (keyed by a hash of the header, the sources
 and the flags, so the same step reuses it), and cached in-process
 (:func:`load_user_kernels`).
+
+The fused QP kernel (``csrc/riccati_qp.cu``) is instantiated in the
+package's library for its 13 shapes with nx ≤ 5 (``SUPPORTED_DIMS`` in
+``ops/cuda/riccati_qp.py``). Any other (nx, nu) of its range gets a library
+of its own at its first launch: ``csrc/riccati_qp.cu`` alone, built with
+``-DDMM_QP_ONLY_NX=nx -DDMM_QP_ONLY_NU=nu`` (that shape's two
+instantiations) and the same flags by one ``nvcc``, into
+``_build/libdmm_qp_<nx>x<nu>_<hash>.so`` (keyed by a hash of the defines,
+the sources and the flags), and cached in-process (:func:`load_qp_kernels`).
 """
 
 from __future__ import annotations
@@ -214,13 +223,19 @@ def _sources() -> list[Path]:
     return sorted(list(CSRC.glob("*.cu")) + list(CSRC.glob("*.cuh")))
 
 
-def library_path() -> Path:
-    """Where the library for the current sources lives (built or not)."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+def _digest(flags: tuple, extra: str = "") -> str:
+    """A hash of the flags, ``extra`` and the sources: a library's key."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS + flags).encode())
+    h.update(extra.encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libdmm_kernels_{h.hexdigest()[:16]}.so"
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    """Where the library for the current sources lives (built or not)."""
+    return BUILD_DIR / f"libdmm_kernels_{_digest(())}.so"
 
 
 def _run_all(cmds: list[list[str]]) -> None:
@@ -318,12 +333,7 @@ USER_TILE_FLAGS = ("-DDMM_USER_TILE",)
 def user_library_path(header: str) -> Path:
     """Where the library for the generated functor ``header`` lives (built
     or not)."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS + USER_TILE_FLAGS).encode())
-    h.update(header.encode())
-    for src in _sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"libdmm_user_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libdmm_user_{_digest(USER_TILE_FLAGS, header)}.so"
 
 
 def build_user(header: str) -> Path:
@@ -351,6 +361,45 @@ def load_user_kernels(header: str) -> ctypes.CDLL:
     _declare_generic(lib)
     if lib.dmm_generic_args_size() != ctypes.sizeof(DmmGenericArgs):
         raise RuntimeError("DmmGenericArgs layout mismatch in the generated functor's library")
+    return lib
+
+
+def qp_flags(nx: int, nu: int) -> tuple:
+    """The defines that build ``csrc/riccati_qp.cu`` for (nx, nu) alone."""
+    return (f"-DDMM_QP_ONLY_NX={nx}", f"-DDMM_QP_ONLY_NU={nu}")
+
+
+def qp_library_path(nx: int, nu: int) -> Path:
+    """Where the QP library of shape (nx, nu) lives (built or not)."""
+    return BUILD_DIR / f"libdmm_qp_{nx}x{nu}_{_digest(qp_flags(nx, nu))}.so"
+
+
+def build_qp(nx: int, nu: int) -> Path:
+    """Compile ``csrc/riccati_qp.cu`` for (nx, nu) alone unless its library
+    is already there; raise if nvcc fails."""
+    out = qp_library_path(nx, nu)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        lib = str(Path(work) / "lib.so")
+        _run_all([[nvcc, *NVCC_FLAGS, *LINK_FLAGS, *qp_flags(nx, nu),
+                   str(CSRC / "riccati_qp.cu"), "-o", lib]])
+        os.replace(lib, out)  # atomic: a concurrent build sees all or nothing
+    return out
+
+
+@lru_cache(maxsize=None)
+def load_qp_kernels(nx: int, nu: int) -> ctypes.CDLL:
+    """Build if needed and load the QP library of shape (nx, nu)."""
+    lib = ctypes.CDLL(str(build_qp(nx, nu)))
+    lib.dmm_barrier_qp.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.dmm_barrier_qp.restype = ctypes.c_int
+    lib.dmm_qp_args_size.argtypes = []
+    lib.dmm_qp_args_size.restype = ctypes.c_int
+    if lib.dmm_qp_args_size() != ctypes.sizeof(DmmQPArgs):
+        raise RuntimeError(f"DmmQPArgs layout mismatch in the ({nx}, {nu}) QP library")
     return lib
 
 
@@ -383,10 +432,14 @@ __all__ = [
     "GENERIC_CONSTANTS",
     "USER_TILE_HEADER",
     "build",
+    "build_qp",
     "build_user",
     "launch",
     "library_path",
     "load_kernels",
+    "load_qp_kernels",
     "load_user_kernels",
+    "qp_flags",
+    "qp_library_path",
     "user_library_path",
 ]

@@ -55,6 +55,21 @@
 // then read their records through L1 and L2; a problem at (5, 4), N = 300
 // takes ~0.28 MB, so a fleet of 128 stays in the 50 MB L2.
 //
+// Any width up to (12, 6): the package's library instantiates the 13 shapes
+// with nx ≤ 5, nu ≤ 4; any other (nx, nu) with 2 ≤ nx ≤ 12, 1 ≤ nu ≤
+// min(nx, 6) is built at its first launch from this file alone with
+// -DDMM_QP_ONLY_NX/NU (_build.py build_qp). At those widths a stage of
+// phase B is E1 = nx·(nx + nu + 1) products over ⌈E1/32⌉ lane rounds
+// (126 over 4 at (9, 4), 228 over 8 at (12, 6)), nu·(nu + nx + 1) for the
+// gains and nx·(nx + 1) for the value update over up to 5: the serial chain
+// still bounds the kernel, but each round is a pass of dependent sums, and
+// a shuffled copy of every product (H shuffles and selects a read, the
+// design above) would cost hundreds of shuffles a stage and more registers
+// than a thread has. So past nx = 5 (fold_wide, backward_wide) the products
+// are exchanged through the terminal stage's record, one load a read at a
+// fixed offset, and Qxx is summed in its record field rather than in
+// registers; the arithmetic and its order are the same, bit for bit.
+//
 // The operations run in the Pallas body's order (sums left to right from the
 // first term, the same symmetrisations, pivoting and selects; every element
 // of phases A and D and every product of phase B with the same operations as
@@ -297,70 +312,125 @@ struct Problem {
       }
     }
 
-    if (i < N) {
-      float dUi[NU], Ruu[NU][NU], r_u[NU];
-#pragma unroll
-      for (int a = 0; a < NU; ++a) dUi[a] = s_[RC::DU + a];
-#pragma unroll
-      for (int a = 0; a < NU; ++a)
-#pragma unroll
-        for (int b = 0; b < NU; ++b) Ruu[a][b] = s_[RC::R + a * NU + b];
-#pragma unroll
-      for (int a = 0; a < NU; ++a) {
-        float s = Ruu[a][0] * dUi[0];
-#pragma unroll
-        for (int b = 1; b < NU; ++b) s = s + Ruu[a][b] * dUi[b];
-        r_u[a] = s_[RC::RU + a] + s;
-      }
-#pragma unroll
-      for (int a = 0; a < NU; ++a) {
-        float gl, hl, gu, hu;
-        rb(s_[RC::LBU + a] + dUi[a], mu, k_.stiff, k_.delta, gl, hl);
-        rb(s_[RC::UBU + a] - dUi[a], mu, k_.stiff, k_.delta, gu, hu);
-        r_u[a] = r_u[a] + gl - gu;
-        Ruu[a][a] = Ruu[a][a] + hl + hu;
-      }
-      if (has_S) {
-        const float* Sm = s_ + s_off();  // (NU, NX)
-#pragma unroll
-        for (int d = 0; d < NX; ++d) {
-          float s = Sm[d] * dUi[0];
-#pragma unroll
-          for (int a = 1; a < NU; ++a) s = s + Sm[a * NX + d] * dUi[a];
-          q[d] = q[d] + s;
-        }
-#pragma unroll
-        for (int a = 0; a < NU; ++a) {
-          float s = Sm[a * NX] * dXi[0];
-#pragma unroll
-          for (int d = 1; d < NX; ++d) s = s + Sm[a * NX + d] * dXi[d];
-          r_u[a] = r_u[a] + s;
-        }
-      }
-      const float* nxt = st(i + 1);
-#pragma unroll
-      for (int d = 0; d < NX; ++d) {
-        float sa = s_[RC::A + d * NX] * dXi[0];
-#pragma unroll
-        for (int e = 1; e < NX; ++e) sa = sa + s_[RC::A + d * NX + e] * dXi[e];
-        float sb = s_[RC::B + d * NU] * dUi[0];
-#pragma unroll
-        for (int a = 1; a < NU; ++a) sb = sb + s_[RC::B + d * NU + a] * dUi[a];
-        s_[RC::CR + d] = sa + sb + s_[RC::C + d] - nxt[RC::DX + d];
-      }
-#pragma unroll
-      for (int a = 0; a < NU; ++a) {
-#pragma unroll
-        for (int b = 0; b < NU; ++b) s_[RC::RF + a * NU + b] = Ruu[a][b];
-        s_[RC::RFV + a] = r_u[a];
-      }
-    }
+    if (i < N) fold_u(s_, i, mu, k_, q, dXi);
 #pragma unroll
     for (int r = 0; r < NX; ++r) {
 #pragma unroll
       for (int e = 0; e < NX; ++e) s_[RC::QF + r * NX + e] = Qxx[r][e];
       s_[RC::QFV + r] = q[r];
     }
+  }
+
+  // fold's u part for stage i < N: Ruu and r_u (+ S·δx, and Sᵀ·δu into q),
+  // the dynamics residual cr
+  __device__ __forceinline__ void fold_u(float* s_, int i, float mu, const Consts& k_,
+                                         float (&q)[NX], const float (&dXi)[NX]) const {
+    float dUi[NU], Ruu[NU][NU], r_u[NU];
+#pragma unroll
+    for (int a = 0; a < NU; ++a) dUi[a] = s_[RC::DU + a];
+#pragma unroll
+    for (int a = 0; a < NU; ++a)
+#pragma unroll
+      for (int b = 0; b < NU; ++b) Ruu[a][b] = s_[RC::R + a * NU + b];
+#pragma unroll
+    for (int a = 0; a < NU; ++a) {
+      float s = Ruu[a][0] * dUi[0];
+#pragma unroll
+      for (int b = 1; b < NU; ++b) s = s + Ruu[a][b] * dUi[b];
+      r_u[a] = s_[RC::RU + a] + s;
+    }
+#pragma unroll
+    for (int a = 0; a < NU; ++a) {
+      float gl, hl, gu, hu;
+      rb(s_[RC::LBU + a] + dUi[a], mu, k_.stiff, k_.delta, gl, hl);
+      rb(s_[RC::UBU + a] - dUi[a], mu, k_.stiff, k_.delta, gu, hu);
+      r_u[a] = r_u[a] + gl - gu;
+      Ruu[a][a] = Ruu[a][a] + hl + hu;
+    }
+    if (has_S) {
+      const float* Sm = s_ + s_off();  // (NU, NX)
+#pragma unroll
+      for (int d = 0; d < NX; ++d) {
+        float s = Sm[d] * dUi[0];
+#pragma unroll
+        for (int a = 1; a < NU; ++a) s = s + Sm[a * NX + d] * dUi[a];
+        q[d] = q[d] + s;
+      }
+#pragma unroll
+      for (int a = 0; a < NU; ++a) {
+        float s = Sm[a * NX] * dXi[0];
+#pragma unroll
+        for (int d = 1; d < NX; ++d) s = s + Sm[a * NX + d] * dXi[d];
+        r_u[a] = r_u[a] + s;
+      }
+    }
+    const float* nxt = st(i + 1);
+#pragma unroll
+    for (int d = 0; d < NX; ++d) {
+      float sa = s_[RC::A + d * NX] * dXi[0];
+#pragma unroll
+      for (int e = 1; e < NX; ++e) sa = sa + s_[RC::A + d * NX + e] * dXi[e];
+      float sb = s_[RC::B + d * NU] * dUi[0];
+#pragma unroll
+      for (int a = 1; a < NU; ++a) sb = sb + s_[RC::B + d * NU + a] * dUi[a];
+      s_[RC::CR + d] = sa + sb + s_[RC::C + d] - nxt[RC::DX + d];
+    }
+#pragma unroll
+    for (int a = 0; a < NU; ++a) {
+#pragma unroll
+      for (int b = 0; b < NU; ++b) s_[RC::RF + a * NU + b] = Ruu[a][b];
+      s_[RC::RFV + a] = r_u[a];
+    }
+  }
+
+  // Phase A past nx = 5: fold's operations in fold's order, but Qxx summed
+  // in place in the record's folded field (QF) instead of in registers,
+  // where its nx² floats would not fit beside the rest.
+  __device__ void fold_wide(int i, float mu, const Consts& k_) const {
+    float* s_ = st(i);
+    float* Qf = s_ + RC::QF;
+    float q[NX], dXi[NX];
+#pragma unroll
+    for (int d = 0; d < NX; ++d) dXi[d] = s_[RC::DX + d];
+#pragma unroll
+    for (int d = 0; d < NX; ++d) {
+      float s = s_[RC::Q + d * NX] * dXi[0];
+#pragma unroll
+      for (int e = 1; e < NX; ++e) s = s + s_[RC::Q + d * NX + e] * dXi[e];
+      q[d] = s_[RC::QX + d] + s;
+    }
+#pragma unroll
+    for (int d = 0; d < NX; ++d) {
+      float gl, hl, gu, hu;
+      rb(s_[RC::LBX + d] + dXi[d], mu, k_.stiff, k_.delta, gl, hl);
+      rb(s_[RC::UBX + d] - dXi[d], mu, k_.stiff, k_.delta, gu, hu);
+      q[d] = q[d] + gl - gu;
+#pragma unroll
+      for (int e = 0; e < NX; ++e)
+        Qf[d * NX + e] = e == d ? s_[RC::Q + d * NX + e] + hl + hu : s_[RC::Q + d * NX + e];
+    }
+    for (int r = 0; r < n_h; ++r) {
+      float Jr[NX];
+#pragma unroll
+      for (int d = 0; d < NX; ++d) Jr[d] = s_[jh() + r * NX + d];
+      float s = Jr[0] * dXi[0];
+#pragma unroll
+      for (int d = 1; d < NX; ++d) s = s + Jr[d] * dXi[d];
+      const float wh = s_[h0() + r] + s;
+      float gh, hh;
+      rb(wh, mu, k_.h_stiff, k_.delta, gh, hh);
+      gh = gh - k_.h_slope * (wh < 0.0f ? 1.0f : 0.0f);
+#pragma unroll
+      for (int d = 0; d < NX; ++d) {
+        q[d] = q[d] + Jr[d] * gh;
+#pragma unroll
+        for (int e = 0; e < NX; ++e) Qf[d * NX + e] = Qf[d * NX + e] + Jr[d] * hh * Jr[e];
+      }
+    }
+
+    if (i < N) fold_u(s_, i, mu, k_, q, dXi);
+#pragma unroll
+    for (int r = 0; r < NX; ++r) s_[RC::QFV + r] = q[r];
   }
 
   // Phase B: the backward sweep from the terminal fold, across the warp.
@@ -507,6 +577,139 @@ struct Problem {
     }
   }
 
+  // Phase B past nx = 5, where the products outgrow the lane rounds above
+  // (P·[A | B | cr] over two, [Pn | pn] over one): the same products, each
+  // computed whole by one lane in a serial sweep's order, element lane +
+  // 32·h in round h, but exchanged through the terminal stage's record
+  // instead of shuffles, so that a lane holds no copy of a whole product
+  // and reads any element with one load at a fixed offset. P lives in the
+  // record's folded Qxx (the terminal fold itself is the first P),
+  // P·[A | B | cr] and [Lraw | Lux | lu] in its u part, which no other phase
+  // reads (stage N has no input), and [Pn | pn] over them once both are
+  // read. The elimination runs in every lane, lane c ≤ NX back-substitutes
+  // column c, and step 4 takes the gains from those lanes by shuffle.
+  __device__ void backward_wide(float reg) const {
+    constexpr int MC = NX + NU + 1, E1 = NX * MC, H1 = (E1 + 31) / 32;
+    constexpr int W2 = NU + NX + 1, E2 = NU * W2, H2 = (E2 + 31) / 32;
+    constexpr int E4 = NX * (NX + 1), H4 = (E4 + 31) / 32;
+    constexpr int EP = NX * NX, HP = (EP + 31) / 32;
+    static_assert(NX + 1 <= 32, "lanes 0..NX store the gains");
+    static_assert(E1 + E2 <= RC::FIXED - RC::A && E4 <= E1 + E2,
+                  "the terminal record's u part holds the exchanged products");
+    float* const term = st(N);
+    float* const sP = term + RC::QF;  // P (NX × NX)
+    float* const s1 = term + RC::A;   // P·[A | B | cr] (NX × MC)
+    float* const s2 = s1 + E1;        // [Lraw | Lux | lu] (NU × W2)
+    float* const s4 = s1;             // [Pn | pn] (NX × (NX + 1))
+    const int ci = min(lane, NX);     // the right-hand column this lane back-substitutes
+    const int k_off = lane < NX ? RC::K + lane : RC::KV, k_stride = lane < NX ? NX : 1;
+    float pv = term[RC::QFV + min(lane, NX - 1)];  // lane r holds p[r]
+#pragma unroll 1
+    for (int j = 0; j < N; ++j) {
+      float* s_ = st(N - 1 - j);
+      // step 1: element e = r·MC + col of P·[A | B | cr]
+#pragma unroll
+      for (int h = 0; h < H1; ++h) {
+        const int e = lane + 32 * h, r = min(e, E1 - 1) / MC, col = min(e, E1 - 1) - r * MC;
+        const float* m =
+            s_ + (col < NX ? RC::A + col : (col < NX + NU ? RC::B + (col - NX) : RC::CR));
+        const int ms = col < NX ? NX : (col < NX + NU ? NU : 1);
+        float s = sP[r * NX] * m[0];
+#pragma unroll
+        for (int t = 1; t < NX; ++t) s = s + sP[r * NX + t] * m[t * ms];
+        if (e < E1) s1[e] = s;
+      }
+      __syncwarp();
+      float ppc[NX];  // p + Pc, in every lane
+#pragma unroll
+      for (int t = 0; t < NX; ++t) ppc[t] = __shfl_sync(kFull, pv, t) + s1[t * MC + NX + NU];
+
+      // step 2: element e = a·W2 + c2 of [Lraw | Lux | lu] (Lraw unsymmetrised)
+#pragma unroll
+      for (int h = 0; h < H2; ++h) {
+        const int f = lane + 32 * h, a = min(f, E2 - 1) / W2, c2 = min(f, E2 - 1) - a * W2;
+        const int c1 = c2 < NU ? NX + c2 : c2 - NU;  // PB column, else PA column
+        float s = 0.0f;
+#pragma unroll
+        for (int t = 0; t < NX; ++t) {
+          const float x_t = c2 >= NU + NX ? ppc[t] : s1[t * MC + c1];
+          const float b_ta = s_[RC::B + a + t * NU];
+          s = t == 0 ? b_ta * x_t : s + b_ta * x_t;
+        }
+        const float base = c2 >= NU && c2 < NU + NX && !has_S ? 0.0f
+                           : s_[c2 < NU ? RC::RF + a * NU + c2
+                                        : c2 < NU + NX ? s_off() + a * NX + (c2 - NU)
+                                                       : RC::RFV + a];
+        if (f < E2) s2[f] = base + s;
+      }
+      __syncwarp();
+      float rows[NU][NU + NX + 1];
+#pragma unroll
+      for (int a = 0; a < NU; ++a) {
+#pragma unroll
+        for (int b = 0; b < NU; ++b)
+          rows[a][b] = 0.5f * (s2[a * W2 + b] + s2[b * W2 + a]) + (a == b ? reg : 0.0f);
+#pragma unroll
+        for (int c = NU; c < W2; ++c) rows[a][c] = s2[a * W2 + c];
+      }
+      // step 3: the elimination in every lane; lane ci ≤ NX back-substitutes
+      // and stores column ci of K (ci < NX) or k
+      lu_eliminate<NX, NU>(rows);
+      float xc[NU];
+      {
+        float b[NU];
+#pragma unroll
+        for (int a = 0; a < NU; ++a) {
+          b[a] = rows[a][NU];
+#pragma unroll
+          for (int t = 1; t < NX + 1; ++t) b[a] = ci == t ? rows[a][NU + t] : b[a];
+        }
+        back_substitute<NX, NU>(rows, b, xc);
+      }
+      if (lane <= NX) {
+#pragma unroll
+        for (int a = 0; a < NU; ++a) s_[k_off + a * k_stride] = -xc[a];
+      }
+
+      // step 4: element e = r·(NX + 1) + cc of [Pn | pn]
+      float v4[H4];
+#pragma unroll
+      for (int h = 0; h < H4; ++h) {
+        const int e4 = min(lane + 32 * h, E4 - 1), r4 = e4 / (NX + 1), cc4 = e4 - r4 * (NX + 1);
+        float sa = 0.0f;
+#pragma unroll
+        for (int t = 0; t < NX; ++t) {
+          const float y = cc4 < NX ? s1[t * MC + cc4] : ppc[t];
+          const float a_tr = s_[RC::A + t * NX + r4];
+          sa = t == 0 ? a_tr * y : sa + a_tr * y;
+        }
+        float sl = 0.0f;
+#pragma unroll
+        for (int a = 0; a < NU; ++a) {
+          const float lux = s2[a * W2 + NU + r4];
+          const float kc = __shfl_sync(kFull, -xc[a], cc4);  // K[a][cc], or k[a] at cc = NX
+          sl = a == 0 ? lux * kc : sl + lux * kc;
+        }
+        v4[h] = s_[cc4 < NX ? RC::QF + r4 * NX + cc4 : RC::QFV + r4] + sa + sl;
+      }
+      __syncwarp();  // s1 and s2 read by every lane
+#pragma unroll
+      for (int h = 0; h < H4; ++h)
+        if (lane + 32 * h < E4) s4[lane + 32 * h] = v4[h];
+      __syncwarp();
+      // P = ½(Pn + Pnᵀ) and p = pn
+#pragma unroll
+      for (int h = 0; h < HP; ++h) {
+        const int q = lane + 32 * h, pr = min(q, EP - 1) / NX, pc = min(q, EP - 1) - pr * NX;
+        const float a1 = s4[pr * (NX + 1) + pc];
+        const float a2 = s4[pc * (NX + 1) + pr];
+        if (q < EP) sP[q] = 0.5f * (a1 + a2);
+      }
+      pv = s4[min(lane, NX - 1) * (NX + 1) + NX];
+      __syncwarp();  // P written, and [Pn | pn] read, before the next stage
+    }
+  }
+
   // Phase C on one lane: the forward sweep on the residual problem (δ²x₀ = 0)
   __device__ void forward() const {
     float ddx[NX];
@@ -650,9 +853,19 @@ __global__ void __launch_bounds__(32, 1) barrier_qp_kernel(DmmQPArgs a) {
 #pragma unroll 1
   for (int it = 0; it < a.num_iters; ++it) {
     const float mu = a.mus[it];
-    for (int i = lane; i <= N; i += 32) pr.fold(i, mu, k_);
+    for (int i = lane; i <= N; i += 32) {
+      if constexpr (NX <= 5) {
+        pr.fold(i, mu, k_);
+      } else {
+        pr.fold_wide(i, mu, k_);
+      }
+    }
     __syncwarp();
-    pr.backward(k_.reg);
+    if constexpr (NX <= 5) {
+      pr.backward(k_.reg);
+    } else {
+      pr.backward_wide(k_.reg);
+    }
     __syncwarp();  // the gains that lanes 0..NX stored, seen by lane 0
     if (lane == 0) pr.forward();
     __syncwarp();
@@ -748,14 +961,25 @@ extern "C" {
 int dmm_qp_args_size() { return static_cast<int>(sizeof(DmmQPArgs)); }
 
 // The fused QP for Bn problems (Bn = 1: the per-problem solve), the records
-// in shared memory, or in a.work when it is not null. Shapes instantiated:
-// 2 ≤ nx ≤ 5, 1 ≤ nu ≤ min(nx, 4); any other, or a stage record length
-// other than the kernel's, returns cudaErrorInvalidValue without launching.
+// in shared memory, or in a.work when it is not null. The package's library
+// instantiates 2 ≤ nx ≤ 5, 1 ≤ nu ≤ min(nx, 4); built with
+// -DDMM_QP_ONLY_NX=nx -DDMM_QP_ONLY_NU=nu (_build.py build_qp) it holds that
+// one shape, any of 2 ≤ nx ≤ 12, 1 ≤ nu ≤ min(nx, 6). Any other shape, or a
+// stage record length other than the kernel's, returns cudaErrorInvalidValue
+// without launching.
 int dmm_barrier_qp(const DmmQPArgs* args, void* stream) {
   const DmmQPArgs a = *args;
   if (a.Bn < 1 || a.N < 1 || a.n_h < 0 || a.num_iters < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#ifdef DMM_QP_ONLY_NX
+  static_assert(2 <= DMM_QP_ONLY_NX && DMM_QP_ONLY_NX <= 12 && 1 <= DMM_QP_ONLY_NU &&
+                    DMM_QP_ONLY_NU <= DMM_QP_ONLY_NX && DMM_QP_ONLY_NU <= 6,
+                "the kernel's range: 2 <= nx <= 12, 1 <= nu <= min(nx, 6)");
+  if (a.nx == DMM_QP_ONLY_NX && a.nu == DMM_QP_ONLY_NU)
+    return static_cast<int>(launch_qp<DMM_QP_ONLY_NX, DMM_QP_ONLY_NU>(a, s));
+  return static_cast<int>(cudaErrorInvalidValue);
+#else
   switch (a.nx * 8 + a.nu) {
     case 2 * 8 + 1: return static_cast<int>(launch_qp<2, 1>(a, s));
     case 2 * 8 + 2: return static_cast<int>(launch_qp<2, 2>(a, s));
@@ -772,6 +996,7 @@ int dmm_barrier_qp(const DmmQPArgs* args, void* stream) {
     case 5 * 8 + 4: return static_cast<int>(launch_qp<5, 4>(a, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#endif
 }
 
 }  // extern "C"

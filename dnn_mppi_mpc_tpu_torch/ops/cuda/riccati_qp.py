@@ -35,13 +35,21 @@ instantiation keeps the records there (:func:`qp_uses_workspace`): the same
 code in the same order of operations, so either route equals the plain
 version bit for bit.
 
+Any (nx, nu) with 2 ≤ nx ≤ ``QP_MAX_NX`` (12) and 1 ≤ nu ≤ min(nx,
+``QP_MAX_NU`` (6)) runs. The package's library holds the 13 shapes of
+``SUPPORTED_DIMS`` (nx ≤ 5, nu ≤ 4); any other shape of the range is
+compiled at its first launch into a library of its own
+(``_build.load_qp_kernels``: ``csrc/riccati_qp.cu`` built for that shape
+alone), which later launches reuse. A failed build raises.
+
 On CUDA tensors each launches the kernel; on CPU tensors each runs its plain
 version, the same algorithm in plain PyTorch in the kernel's order of
 operations, with the problems on a leading B axis (a member's scalar of the
 kernel is one element of a (B, …) tensor op; loops over matrix dimensions
 run over the contraction index only, adding terms in the kernel's order).
-Nothing falls back: on the card a shape the kernel was not instantiated for
-raises ``ValueError``. Everything runs in float32, as in the JAX kernels.
+Nothing falls back: on the card a shape outside the range raises
+``ValueError`` before any launch. Everything runs in float32, as in the
+JAX kernels.
 
 Both wrappers differentiate (the JAX package's ``:706
 make_vmappable_pallas_qp`` ``custom_vjp``): when grad mode is on and an
@@ -66,13 +74,16 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
-from ..._build import QP_TABLES, DmmQPArgs, launch
+from ..._build import QP_TABLES, DmmQPArgs, launch, load_qp_kernels
 from ..filters import full_f32
 from ..sampling import small_lu_solve
 from .common import MAX_SMEM_OPT_IN, on_cuda
 
-# (nx, nu) pairs csrc/riccati_qp.cu instantiates
+# (nx, nu) pairs the package's library instantiates (csrc/riccati_qp.cu's
+# dispatch); any other in the kernel's range, 2 ≤ nx ≤ QP_MAX_NX and
+# 1 ≤ nu ≤ min(nx, QP_MAX_NU), is built at its first launch
 SUPPORTED_DIMS = tuple((nx, nu) for nx in range(2, 6) for nu in range(1, min(nx, 4) + 1))
+QP_MAX_NX, QP_MAX_NU = 12, 6
 _INF = 3.0e38
 # the BoxedQPData leaves (solvers/qp.py) and each one's rank without a batch
 QP_LEAF_NDIM = dict(A=3, B=3, c=2, Q=3, qx_base=2, R=3, ru_base=2, lbx=2, ubx=2, lbu=2, ubu=2,
@@ -137,11 +148,17 @@ def batch_leaves(qp, dx0: torch.Tensor, dtype: Optional[torch.dtype] = None):
     return leaves, lead(dx0, 1, "dx0"), B, batched
 
 
+def in_range(nx: int, nu: int) -> bool:
+    """Whether the kernel takes (nx, nu): 2 ≤ nx ≤ QP_MAX_NX, 1 ≤ nu ≤
+    min(nx, QP_MAX_NU)."""
+    return 2 <= nx <= QP_MAX_NX and 1 <= nu <= min(nx, QP_MAX_NU)
+
+
 def _check_dims(N, nx, nu, n_h, leaves, B, num_iters) -> None:
-    if (nx, nu) not in SUPPORTED_DIMS:
+    if not in_range(nx, nu):
         raise ValueError(
-            f"the fused QP kernel is instantiated for (nx, nu) in {list(SUPPORTED_DIMS)}; "
-            f"got ({nx}, {nu})")
+            f"the fused QP kernel takes 2 ≤ nx ≤ {QP_MAX_NX} and 1 ≤ nu ≤ min(nx, {QP_MAX_NU}); "
+            f"got (nx, nu) = ({nx}, {nu})")
     if num_iters < 1:
         raise ValueError(f"num_iters must be at least 1, got {num_iters}")
     shapes = dict(A=(N, nx, nx), B=(N, nx, nu), c=(N, nx), Q=(N + 1, nx, nx),
@@ -425,7 +442,10 @@ def _launch(leaves, dx0, B, num_iters, mu0, kappa, delta, stiffness, h_stiffness
     # a table copied above, and the workspace, are freed when this returns,
     # to the caching allocator, which hands their memory only to work queued
     # after this launch on its stream
-    launch("dmm_barrier_qp", args, dev)
+    if (nx, nu) in SUPPORTED_DIMS:
+        launch("dmm_barrier_qp", args, dev)
+    else:  # the shape's own library, built at its first launch
+        launch("dmm_barrier_qp", args, dev, load_qp_kernels(nx, nu))
     return dX, dU, kkt
 
 
@@ -586,6 +606,8 @@ _PLAIN = {fused_barrier_qp_solve: fused_barrier_qp_solve_plain,
 __all__ = [
     "BACKWARDS",
     "QP_LEAF_NDIM",
+    "QP_MAX_NU",
+    "QP_MAX_NX",
     "SUPPORTED_DIMS",
     "TABLES",
     "batch_leaves",
@@ -593,6 +615,7 @@ __all__ = [
     "batched_fused_barrier_qp_solve_plain",
     "fused_barrier_qp_solve",
     "fused_barrier_qp_solve_plain",
+    "in_range",
     "kernel_tables",
     "qp_max_horizon",
     "qp_schedule",

@@ -35,7 +35,7 @@
   the construction loses 1.3e-3); ``barrier_qp_solve(parallel=True)``
   against JAX ``parallel=True`` on the ``QP_CASES`` at their tolerances;
 * the guards: an input that requires grad takes gradients (an unknown
-  backward rule raises), an uninstantiated (nx, nu) on the card, the JAX
+  backward rule raises), an (nx, nu) outside the kernel's range, the JAX
   backend names in ``SQPConfig`` and its ``parallel_riccati`` (JAX's
   default, read by the torch backend).
 
@@ -465,16 +465,18 @@ def test_per_problem_wrapper_rejects_a_batch():
 
 
 def test_uninstantiated_shape_raises_before_launch():
-    """(nx, nu) outside the instantiated set raises ValueError naming the
-    supported ones (the check the CUDA path makes before any launch)."""
+    """(nx, nu) outside the kernel's range (here nu = 7 > 6) raises
+    ValueError naming the range (the check the CUDA path makes before any
+    launch); the package library's 13 shapes are inside it."""
     leaves = {n: torch.zeros(s) for n, s in dict(
-        A=(1, 4, 6, 6), B=(1, 4, 6, 2), c=(1, 4, 6), Q=(1, 5, 6, 6), qx_base=(1, 5, 6),
-        R=(1, 4, 2, 2), ru_base=(1, 4, 2), lbx=(1, 5, 6), ubx=(1, 5, 6), lbu=(1, 4, 2),
-        ubu=(1, 4, 2)).items()}
+        A=(1, 4, 6, 6), B=(1, 4, 6, 7), c=(1, 4, 6), Q=(1, 5, 6, 6), qx_base=(1, 5, 6),
+        R=(1, 4, 7, 7), ru_base=(1, 4, 7), lbx=(1, 5, 6), ubx=(1, 5, 6), lbu=(1, 4, 7),
+        ubu=(1, 4, 7)).items()}
     leaves.update(Jh=None, h0=None, S=None)
-    with pytest.raises(ValueError, match=r"\(nx, nu\) in"):
-        tkqp._check_dims(4, 6, 2, 0, leaves, 1, 12)
+    with pytest.raises(ValueError, match=r"1 ≤ nu ≤ min\(nx, 6\); got \(nx, nu\) = \(6, 7\)"):
+        tkqp._check_dims(4, 6, 7, 0, leaves, 1, 12)
     assert (5, 4) in tkqp.SUPPORTED_DIMS and (3, 2) in tkqp.SUPPORTED_DIMS
+    assert all(tkqp.in_range(nx, nu) for nx, nu in tkqp.SUPPORTED_DIMS)
 
 
 @pytest.mark.parametrize("name,port", [("xla", "torch"), ("pallas", "kernel")])

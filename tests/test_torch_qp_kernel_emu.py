@@ -8,14 +8,17 @@ on the calling thread, a warp's 32 lanes meeting at every shuffle and
 tensors, with its real argument block (``kernel_tables``, strides, the
 shared-memory record count). So the kernel's indexing, its four phases,
 the shuffles of phase B and the warp trees are checked here, where there
-is no card, for each of the 13 instantiated (nx, nu): every case must
-equal the plain version (``_qp_plain``) bit for bit, as the kernel equals
-it on the card (``chip_smoke.py``). The same cases, and a batch of five,
-run again on the kernel's device-memory route (the records in a workspace
-put into the argument block, as the wrapper does past ``qp_max_horizon``;
-the workspace filled with NaN first, so a record read before it is written
-shows). Also: the C struct's size against the ctypes mirror,
-and the launch's refusals (a record count other than the kernel's, no
+is no card, for each of the 13 (nx, nu) of the package's library and for
+(6, 2), (9, 4), (12, 4) and (12, 6), each built alone with the defines of
+its first-use library (``_build.qp_flags``; phase A and B's forms past
+nx = 5): every case must equal the plain version (``_qp_plain``) bit for
+bit, as the kernel equals it on the card (``chip_smoke.py``). The same
+cases, and a batch of five at (5, 4) and at (9, 4), run again on the
+kernel's device-memory route (the records in a workspace put into the
+argument block, as the wrapper does past ``qp_max_horizon``; the workspace
+filled with NaN first, so a record read before it is written shows).
+Also: the C struct's size against the ctypes mirror, and the package
+library's launch refusals (a record count other than the kernel's, no
 problem, no stage, no iteration, an uninstantiated shape). Skips without
 g++.
 """
@@ -34,24 +37,40 @@ from dnn_mppi_mpc_tpu_torch.ops.cuda import riccati_qp as rq
 from dnn_mppi_mpc_tpu_torch.solvers.qp import BoxedQPData
 
 
-@pytest.fixture(scope="module")
-def emu(tmp_path_factory):
-    """The kernel source built for the CPU emulation; ``_launch`` pointed at it."""
-    lib = cuda_emu.build(["riccati_qp.cu"], tmp_path_factory.mktemp("qp_emu"))
+def _emu_library(work, defines=()):
+    lib = cuda_emu.build(["riccati_qp.cu"], work, defines)
     if lib is None:
         pytest.skip("needs g++ to build the kernel source for the CPU")
     lib.dmm_barrier_qp.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     lib.dmm_barrier_qp.restype = ctypes.c_int
     lib.dmm_qp_args_size.restype = ctypes.c_int
+    return lib
 
-    def launch(entry, args, device):
+
+@pytest.fixture(scope="module")
+def emu(tmp_path_factory):
+    """The kernel source built for the CPU emulation; ``_launch`` pointed at
+    it, and at a library of the source built alone for a shape past the
+    package's 13 with that shape's first-use defines (``_build.qp_flags``)."""
+    lib = _emu_library(tmp_path_factory.mktemp("qp_emu"))
+    one_shape = {}
+
+    def load_qp_kernels(nx, nu):
+        if (nx, nu) not in one_shape:
+            one_shape[(nx, nu)] = _emu_library(
+                tmp_path_factory.mktemp(f"qp_emu_{nx}x{nu}"),
+                tuple(d.removeprefix("-D") for d in _build.qp_flags(nx, nu)))
+        return one_shape[(nx, nu)]
+
+    def launch(entry, args, device, kernels=None):
         assert entry == "dmm_barrier_qp" and device.type == "cpu"
-        err = lib.dmm_barrier_qp(ctypes.addressof(args), None)
+        err = (kernels or lib).dmm_barrier_qp(ctypes.addressof(args), None)
         if err != 0:
             raise RuntimeError(f"{entry}: error {err} at launch")
 
     mp = pytest.MonkeyPatch()
     mp.setattr(rq, "launch", launch)
+    mp.setattr(rq, "load_qp_kernels", load_qp_kernels)
     yield lib
     mp.undo()
 
@@ -102,10 +121,11 @@ def _assert_equal(got, want):
         assert torch.isfinite(g).all() and torch.equal(g, w), name
 
 
-# (N, nx, nu, n_h, S, iterations): every instantiated (nx, nu), among them
-# nmpc_rti's shape, the four-wheel IRK's, and horizons past one lane round
-# (33, 40) and of four (100); few iterations, as every emulated shuffle is a
-# round of thread barriers
+# (N, nx, nu, n_h, S, iterations): every (nx, nu) of the package's library,
+# among them nmpc_rti's shape, the four-wheel IRK's, and horizons past one
+# lane round (33, 40) and of four (100); then shapes past it, built alone
+# (WIDE): the rate-form four-wheel NMPC's (9, 4) and the range's corners;
+# few iterations, as every emulated shuffle is a round of thread barriers
 CASES = [
     (30, 3, 2, 2, False, 4),
     (30, 3, 2, 0, True, 3),
@@ -122,7 +142,13 @@ CASES = [
     (14, 4, 4, 1, False, 3),
     (35, 5, 2, 1, True, 2),
     (10, 5, 3, 2, False, 4),
+    (8, 6, 2, 2, True, 4),
+    (20, 9, 4, 0, False, 3),
+    (35, 9, 4, 2, True, 2),
+    (6, 12, 4, 1, False, 3),
+    (5, 12, 6, 2, True, 2),
 ]
+WIDE = [(6, 2), (9, 4), (12, 4), (12, 6)]
 
 
 @pytest.mark.parametrize("N,nx,nu,n_h,with_S,iters", CASES,
@@ -140,12 +166,12 @@ def workspace(emu, monkeypatch):
     wrapper takes past ``qp_max_horizon``. Yields the workspaces handed over."""
     given = []
 
-    def launch(entry, args, device):
+    def launch(entry, args, device, kernels=None):
         assert entry == "dmm_barrier_qp" and args.work is None
         work = torch.full((args.Bn * (args.N + 1) * args.stage_floats,), float("nan"))
         given.append(work)
         args.work = work.data_ptr()
-        err = emu.dmm_barrier_qp(ctypes.addressof(args), None)
+        err = (kernels or emu).dmm_barrier_qp(ctypes.addressof(args), None)
         if err != 0:
             raise RuntimeError(f"{entry}: error {err} at launch")
 
@@ -165,10 +191,10 @@ def test_workspace_route_equals_plain_one_problem(workspace, N, nx, nu, n_h, wit
     assert not bool(torch.isnan(work).all())
 
 
-def test_workspace_route_equals_plain_batched(workspace):
-    """B = 5 problems at (5, 4), two h rows and S, each at its own offset of
-    the workspace, with one leaf shared by all (problem stride 0)."""
-    B, N, nx = 5, 12, 5
+def _batched_workspace(workspace, nx):
+    """B = 5 problems at (nx, 4), two h rows and S, each at its own offset
+    of the workspace, with one leaf shared by all (problem stride 0)."""
+    B, N = 5, 12
     qp, dx0 = _random_qp(np.random.default_rng(5), N, nx, 4, 2, True, B)
     qp = qp._replace(ubx=qp.ubx[0])
     got, want = _solve_both(qp, dx0, 4)
@@ -183,8 +209,19 @@ def test_workspace_route_equals_plain_batched(workspace):
     assert torch.equal(records[:, :, dx_off:dx_off + nx], got[0])
 
 
+def test_workspace_route_equals_plain_batched(workspace):
+    """B = 5 problems at (5, 4), as ``_batched_workspace``."""
+    _batched_workspace(workspace, 5)
+
+
+def test_workspace_route_equals_plain_batched_wide(workspace):
+    """B = 5 problems at (9, 4) on the (9, 4) library's workspace route."""
+    _batched_workspace(workspace, 9)
+
+
 def test_every_instantiation_is_covered():
-    assert sorted({(c[1], c[2]) for c in CASES}) == sorted(rq.SUPPORTED_DIMS)
+    assert sorted({(c[1], c[2]) for c in CASES}) == sorted(set(rq.SUPPORTED_DIMS) | set(WIDE))
+    assert all(rq.in_range(nx, nu) and (nx, nu) not in rq.SUPPORTED_DIMS for nx, nu in WIDE)
 
 
 @pytest.mark.parametrize("B,iters", [(7, 6), (3, 12)])

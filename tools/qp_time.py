@@ -10,30 +10,38 @@ kernel are compared by running each tree's copy in one call, in turns
   of the back substitution are exact zeros) and its tenth tick;
 * the four-wheel IRK NMPC's first QP ((5, 4), N = 20, 10 iterations);
 * nmpc_fleet's first QP (B = 128);
-* the three main-path loops as ``chip_smoke.py`` drives them: nmpc_rti
-  (100 ticks from x0 = 0, 100 QPs), the four-wheel IRK (80 ticks, 160 QPs)
-  and nmpc_fleet (60 ticks, 120 QPs); each loop's QPs are replayed back to
-  back, so that the profile holds only QP kernels, and the device time a
-  QP averaged over the loop is what the loop pays.
+* the rate-form four-wheel NMPC's first QP ((9, 4), N = 20, 10 iterations;
+  ``chip_smoke.py rate_form_nmpc``), on the (9, 4) library built at first
+  use;
+* the four main-path loops as ``chip_smoke.py`` drives them: nmpc_rti
+  (100 ticks from x0 = 0, 100 QPs), the four-wheel IRK (80 ticks, 160 QPs),
+  nmpc_fleet (60 ticks, 120 QPs) and the rate-form four-wheel IRK (80
+  ticks, 160 QPs); each loop's QPs are replayed back to back, so that the
+  profile holds only QP kernels, and the device time a QP averaged over the
+  loop is what the loop pays.
 
 Each single QP is held against the plain version (``_qp_plain``) and must
 agree within 1e-5 (``chip_smoke.py``'s ``TOL["dX"]``); the variants of one
 run must agree with each other exactly. Run from anywhere:
 
-    python tools/qp_time.py [--calls 30] [--variants JSON]
+    python tools/qp_time.py [--calls 30] [--variants JSON] [--library PATH ...]
 
 ``--variants`` is a JSON list of keyword-argument sets for
 ``ops/cuda/riccati_qp._launch``, each timed in turns (default ``[{}]``,
 the launch as the wrappers make it); a set may only name arguments that
 the tree's ``_launch`` takes. Device time comes from the profiler. Prints
-the card's name and power limit, then one JSON line a QP and variant;
-exits non-zero without a card.
+the card's name and power limit, the registers, stack and local memory of
+every QP kernel instantiation in the tree's libraries and in each
+``--library`` (``cuobjdump -res-usage``; another tree's built library, to
+set two side by side), then one JSON line a QP and variant; exits non-zero
+without a card.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -43,7 +51,8 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from dnn_mppi_mpc_tpu_torch import presets  # noqa: E402
+from chip_smoke import rate_form_nmpc  # noqa: E402
+from dnn_mppi_mpc_tpu_torch import _build, presets  # noqa: E402
 from dnn_mppi_mpc_tpu_torch.ops.cuda import riccati_qp as rq  # noqa: E402
 from dnn_mppi_mpc_tpu_torch.solvers import sqp  # noqa: E402
 
@@ -93,10 +102,27 @@ def main_path_qps(dev) -> dict:
     fleet, fleet_params, states, x0s = presets.nmpc_fleet(device=dev)
     fleet_loop = caught("batched_fused_barrier_qp_solve", lambda: closed_loop(
         fleet.batched_solve(), fleet_params, states, x0s, fleet.dyn_step, 60))
+    rate, rate_params = rate_form_nmpc(dev)
+    x = torch.zeros(9, device=dev)
+    rate_loop = caught("fused_barrier_qp_solve", lambda: closed_loop(
+        rate.solve, rate_params, rate.init(x), x, rate.dyn_step, 80))
     return {"nmpc_rti tick 1 QP": rti_loop[:1], "nmpc_rti tick 10 QP": rti_loop[9:10],
             "four_wheel irk tick 1 QP": wheel_loop[:1], "nmpc_fleet tick 1 QP": fleet_loop[:1],
+            "rate-form four_wheel irk tick 1 QP": rate_loop[:1],
             "nmpc_rti loop, 100 ticks": rti_loop, "four_wheel irk loop, 80 ticks": wheel_loop,
-            "nmpc_fleet loop, 60 ticks": fleet_loop}
+            "nmpc_fleet loop, 60 ticks": fleet_loop,
+            "rate-form four_wheel irk loop, 80 ticks": rate_loop}
+
+
+def resources(path: Path) -> list:
+    """(nx, nu, workspace route, registers, stack, local) of each QP kernel
+    instantiation in the built library ``path``."""
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-res-usage", str(path)], capture_output=True, text=True,
+                          check=True).stdout
+    return sorted(tuple(map(int, r)) for r in re.findall(
+        KERNEL + r"ILi(\d+)ELi(\d+)ELb(\d)E\S*\s+REG:(\d+)\s+STACK:(\d+)\s+SHARED:\d+\s+"
+        r"LOCAL:(\d+)", text))
 
 
 def prepared(qp, dx0, kw):
@@ -166,6 +192,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--calls", type=int, default=30)
     ap.add_argument("--variants", default="[{}]")
+    ap.add_argument("--library", action="append", default=[],
+                    help="another built library whose QP kernels' resources to print")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("qp_time: needs a CUDA card", file=sys.stderr)
@@ -175,7 +203,11 @@ def main() -> int:
                           check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     variants = json.loads(args.variants)
-    for label, qps in main_path_qps(torch.device("cuda", 0)).items():
+    qps_by_label = main_path_qps(torch.device("cuda", 0))
+    libraries = [_build.library_path(), _build.qp_library_path(9, 4)]
+    for path in libraries + [Path(p) for p in args.library]:
+        emit({"resources": str(path), "nx_nu_workspace_registers_stack_local": resources(path)})
+    for label, qps in qps_by_label.items():
         measure(label, qps, variants, args.calls if len(qps) == 1 else len(qps) * 3, card)
     return 0
 
